@@ -1,0 +1,17 @@
+"""MB-iSTFT-VITS on PyTorch and CUDA (NVIDIA Hopper).
+
+A port of `mb_istft_vits_tpu` that keeps that package's behaviour and
+public layouts and never imports it (nor JAX). What is ported so far:
+
+  - flagship serving: text -> int16 waveform (`infer.synthesis`,
+    `python -m mb_istft_vits_torch.synthesize`)
+  - the generator's training forward, `Synthesizer.forward`, whose
+    Monotonic Alignment Search runs in hand-written CUDA kernels
+    (`csrc/mas.cu`, bound in `kernels.py`, dispatched by `ops/mas.py`)
+
+Modules run in torch's [B, C, T] layout inside; the public `Synthesizer`
+methods take and return the JAX package's [B, T, C] layouts. Entry points
+run on CUDA unless the caller passes device="cpu".
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,11 @@
+from mb_istft_vits_torch.models.decoders import MultibandISTFTGenerator  # noqa: F401
+from mb_istft_vits_torch.models.duration import DurationPredictor  # noqa: F401
+from mb_istft_vits_torch.models.encoders import (  # noqa: F401
+    PosteriorEncoder,
+    TextEncoder,
+)
+from mb_istft_vits_torch.models.synthesizer import (  # noqa: F401
+    InferOutput,
+    ResidualCouplingBlock,
+    Synthesizer,
+)

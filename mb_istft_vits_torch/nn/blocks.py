@@ -1,0 +1,107 @@
+"""Composite conv blocks: gated WaveNet (WN) and HiFi-GAN ResBlocks
+(counterpart of `mb_istft_vits_tpu/nn/blocks.py`; reference
+`modules.py:111-262`). All on [B, C, T] with masks [B, 1, T].
+
+Global (speaker) conditioning is not ported yet: the multi-speaker model
+is a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+
+from mb_istft_vits_torch.nn.layers import Conv1d, get_padding, leaky_relu
+
+
+class WN(nn.Module):
+    """Non-causal WaveNet with gated tanh*sigmoid units; all convs
+    weight-normed (reference modules.py:111-176)."""
+
+    def __init__(self, hidden_channels: int, kernel_size: int,
+                 dilation_rate: int, n_layers: int, p_dropout: float = 0.0):
+        super().__init__()
+        h = hidden_channels
+        self.hidden_channels = h
+        self.in_layers = nn.ModuleList()
+        self.res_skip_layers = nn.ModuleList()
+        for i in range(n_layers):
+            dilation = dilation_rate**i
+            self.in_layers.append(Conv1d(
+                h, 2 * h, kernel_size, dilation=dilation,
+                padding=get_padding(kernel_size, dilation), weight_norm=True))
+            res_skip_ch = 2 * h if i < n_layers - 1 else h
+            self.res_skip_layers.append(
+                Conv1d(h, res_skip_ch, 1, weight_norm=True))
+        self.drop = nn.Dropout(p_dropout)
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+        h = self.hidden_channels
+        output = torch.zeros_like(x)
+        last = len(self.in_layers) - 1
+        for i, (conv_in, conv_rs) in enumerate(
+                zip(self.in_layers, self.res_skip_layers)):
+            x_in = conv_in(x)
+            acts = self.drop(torch.tanh(x_in[:, :h]) * torch.sigmoid(x_in[:, h:]))
+            res_skip = conv_rs(acts)
+            if i < last:
+                x = (x + res_skip[:, :h]) * x_mask
+                output = output + res_skip[:, h:]
+            else:
+                output = output + res_skip
+        return output * x_mask
+
+
+class ResBlock1(nn.Module):
+    """HiFi-GAN ResBlock type 1 (reference modules.py:187-228)."""
+
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 dilation: Sequence[int] = (1, 3, 5)):
+        super().__init__()
+        self.convs1 = nn.ModuleList(
+            Conv1d(channels, channels, kernel_size, dilation=d,
+                   padding=get_padding(kernel_size, d), weight_norm=True)
+            for d in dilation)
+        self.convs2 = nn.ModuleList(
+            Conv1d(channels, channels, kernel_size,
+                   padding=get_padding(kernel_size, 1), weight_norm=True)
+            for _ in dilation)
+
+    def forward(self, x: torch.Tensor,
+                x_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for c1, c2 in zip(self.convs1, self.convs2):
+            xt = leaky_relu(x)
+            if x_mask is not None:
+                xt = xt * x_mask
+            xt = leaky_relu(c1(xt))
+            if x_mask is not None:
+                xt = xt * x_mask
+            x = c2(xt) + x
+        if x_mask is not None:
+            x = x * x_mask
+        return x
+
+
+class ResBlock2(nn.Module):
+    """HiFi-GAN ResBlock type 2 (reference modules.py:237-262)."""
+
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 dilation: Sequence[int] = (1, 3)):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            Conv1d(channels, channels, kernel_size, dilation=d,
+                   padding=get_padding(kernel_size, d), weight_norm=True)
+            for d in dilation)
+
+    def forward(self, x: torch.Tensor,
+                x_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for c in self.convs:
+            xt = leaky_relu(x)
+            if x_mask is not None:
+                xt = xt * x_mask
+            x = c(xt) + x
+        if x_mask is not None:
+            x = x * x_mask
+        return x

@@ -1,0 +1,124 @@
+"""Weight bridge: JAX parameter trees and reference `G_*.pth` files to the
+port's state dict.
+
+The port's modules carry the reference `SynthesizerTrn` state-dict names,
+so a reference checkpoint loads as it is. `state_dict_from_jax` is the
+port's own copy of the JAX package's `export_torch_generator` mapping
+(`train/checkpoint.py:438-593`), restricted to the modules ported so far.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from mb_istft_vits_torch.config import ModelConfig
+
+# reference buffers the port rebuilds in its constructors
+_REBUILT_BUFFERS = ("stft.window", "updown_filter", "analysis_filter",
+                    "synthesis_filter")
+
+
+def state_dict_from_jax(params: Mapping, cfg: ModelConfig
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX `Synthesizer` params (nested dicts of arrays) -> state dict.
+
+    Layouts: a JAX conv kernel is [k, in, out]; torch Conv1d is
+    [out, in, k] and ConvTranspose1d [in, out, k]. Weight norm's g is a
+    vector in JAX and [n, 1, 1] in torch."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def node(path):
+        n = params
+        for p in path:
+            n = n[p]
+        return n
+
+    def put(key, arr):
+        sd[key] = torch.from_numpy(np.ascontiguousarray(np.asarray(
+            arr, dtype=np.float32)))
+
+    def plain_conv(src, dst):
+        n = node(src)
+        put(dst + ".weight", np.asarray(n["kernel"]).transpose(2, 1, 0))
+        if "bias" in n:
+            put(dst + ".bias", n["bias"])
+
+    def wn_conv(src, dst, transpose=False):
+        n = node(src)
+        v = np.asarray(n["v"])
+        put(dst + ".weight_v",
+            v.transpose(1, 2, 0) if transpose else v.transpose(2, 1, 0))
+        put(dst + ".weight_g", np.asarray(n["g"]).reshape(-1, 1, 1))
+        if "bias" in n:
+            put(dst + ".bias", n["bias"])
+
+    def layernorm(src, dst):
+        put(dst + ".gamma", node(src)["gamma"])
+        put(dst + ".beta", node(src)["beta"])
+
+    def wn_block(src, dst, n_layers):
+        for i in range(n_layers):
+            wn_conv(src + (f"in_layers_{i}",), f"{dst}.in_layers.{i}")
+            wn_conv(src + (f"res_skip_layers_{i}",),
+                    f"{dst}.res_skip_layers.{i}")
+
+    put("enc_p.emb.weight", node(("enc_p", "emb"))["embedding"])
+    for i in range(cfg.n_layers):
+        base = ("enc_p", "encoder", f"attn_layers_{i}")
+        dst = f"enc_p.encoder.attn_layers.{i}"
+        for name in ("conv_q", "conv_k", "conv_v", "conv_o"):
+            plain_conv(base + (name,), f"{dst}.{name}")
+        put(f"{dst}.emb_rel_k", node(base)["emb_rel_k"])
+        put(f"{dst}.emb_rel_v", node(base)["emb_rel_v"])
+        for j in (1, 2):
+            layernorm(("enc_p", "encoder", f"norm_layers_{j}_{i}"),
+                      f"enc_p.encoder.norm_layers_{j}.{i}")
+        for name in ("conv_1", "conv_2"):
+            plain_conv(("enc_p", "encoder", f"ffn_layers_{i}", name),
+                       f"enc_p.encoder.ffn_layers.{i}.{name}")
+    plain_conv(("enc_p", "proj"), "enc_p.proj")
+
+    plain_conv(("enc_q", "pre"), "enc_q.pre")
+    plain_conv(("enc_q", "proj"), "enc_q.proj")
+    wn_block(("enc_q", "enc"), "enc_q.enc", 16)
+
+    for i in range(4):
+        base = ("flow", f"coupling_{i}")
+        dst = f"flow.flows.{2 * i}"  # odd indices are Flip (no params)
+        plain_conv(base + ("pre",), f"{dst}.pre")
+        plain_conv(base + ("post",), f"{dst}.post")
+        wn_block(base + ("enc",), f"{dst}.enc", 4)
+
+    for name in ("conv_1", "conv_2", "proj"):
+        plain_conv(("dp", name), f"dp.{name}")
+    layernorm(("dp", "norm_1"), "dp.norm_1")
+    layernorm(("dp", "norm_2"), "dp.norm_2")
+
+    trunk = ("dec", "trunk")
+    wn_conv(trunk + ("conv_pre",), "dec.conv_pre")
+    for i in range(len(cfg.upsample_rates)):
+        wn_conv(trunk + (f"ups_{i}",), f"dec.ups.{i}", transpose=True)
+    convs = (("convs1", "convs2") if cfg.resblock == "1" else ("convs",))
+    n_res = len(cfg.resblock_kernel_sizes) * len(cfg.upsample_rates)
+    for i in range(n_res):
+        base = trunk + (f"resblocks_{i}",)
+        n_dil = len(cfg.resblock_dilation_sizes[i % len(
+            cfg.resblock_kernel_sizes)])
+        for name in convs:
+            for j in range(n_dil):
+                wn_conv(base + (f"{name}_{j}",), f"dec.resblocks.{i}.{name}.{j}")
+    wn_conv(("dec", "subband_conv_post"), "dec.subband_conv_post")
+    return sd
+
+
+def load_generator_pth(path: str) -> Dict[str, torch.Tensor]:
+    """State dict of a reference-format `G_*.pth` ({"model": state_dict,
+    "iteration", "learning_rate", "optimizer"}), without the buffers the
+    port rebuilds itself (iSTFT window, PQMF filters)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
+    return {k.removeprefix("module."): v for k, v in sd.items()
+            if not k.endswith(_REBUILT_BUFFERS)}

@@ -1,0 +1,101 @@
+"""The PyTorch port's entry points and package boundary on the CPU:
+importing the port (every module) and loading chip_smoke.py pulls in no
+JAX and nothing of mb_istft_vits_tpu; devices resolve to CUDA unless the
+CPU is asked for; the serving module and its CLI run end to end."""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import wave
+
+import numpy as np
+import pytest
+import torch
+
+from mb_istft_vits_torch import device as port_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+TINY_MODEL = dict(inter_channels=16, hidden_channels=16, filter_channels=32,
+                  n_layers=1, upsample_initial_channel=32,
+                  resblock_kernel_sizes=[3], resblock_dilation_sizes=[[1, 3, 5]])
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    code = r"""
+import importlib, importlib.util, pkgutil, sys, json
+import mb_istft_vits_torch
+names = [m.name for m in pkgutil.walk_packages(
+    mb_istft_vits_torch.__path__, "mb_istft_vits_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax")
+             or m.startswith("mb_istft_vits_tpu"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    assert "mb_istft_vits_torch.models.synthesizer" in out["modules"]
+    assert "mb_istft_vits_torch.synthesize" in out["modules"]
+
+
+def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_device.resolve_device()
+    with pytest.raises(RuntimeError):
+        port_device.resolve_device("cuda")
+    assert port_device.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.fixture(scope="module")
+def tiny_config(tmp_path_factory):
+    with open(os.path.join(REPO, "configs", "ljs_mb_istft_vits.json")) as f:
+        cfg = json.load(f)
+    cfg["model"].update(TINY_MODEL)
+    path = tmp_path_factory.mktemp("cfg") / "tiny.json"
+    path.write_text(json.dumps(cfg))
+    return str(path)
+
+
+def test_synthesis_module_serves_int16_on_cpu(tiny_config):
+    from mb_istft_vits_torch.infer.synthesis import SynthesisModule
+
+    sm = SynthesisModule(tiny_config, seed=3, device="cpu")
+    text = "ðə kwˈɪk bɹˈaʊn fˈɑːks."
+    pcm, timings = sm.synthesize(text, seed=1)
+    assert pcm.dtype == np.int16
+    assert pcm.size == int(timings["frames"]) * 256 > 0
+    assert np.abs(pcm).max() > 0
+    assert timings["audio_seconds"] == pytest.approx(pcm.size / 22050)
+    again, _ = sm.synthesize(text, seed=1)
+    np.testing.assert_array_equal(pcm, again)  # explicit generator: repeatable
+
+
+def test_synthesize_cli_writes_a_wav(tiny_config, tmp_path):
+    out = tmp_path / "out.wav"
+    proc = subprocess.run(
+        [sys.executable, "-m", "mb_istft_vits_torch.synthesize", "-c",
+         tiny_config, "-t", "həlˈoʊ wˈɜːld.", "-o", str(out), "--device",
+         "cpu"], cwd=REPO, env=_env(), capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    with wave.open(str(out)) as w:
+        assert w.getsampwidth() == 2 and w.getframerate() == 22050
+        assert w.getnframes() == int(report["frames"]) * 256
