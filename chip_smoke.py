@@ -5,11 +5,16 @@
 
 Phases, one JSON line each:
   device   the card (torch and nvidia-smi)
-  build    nvcc builds the MAS kernels from mb_istft_vits_torch/csrc
+  build    nvcc builds the MAS kernels from mb_istft_vits_torch/csrc;
+           fails if ptxas reports a spill in the DP kernels; counts the
+           SASS instructions of each DP kernel's row loop
   kernels  each MAS kernel against its plain PyTorch version, bit for bit,
            at the training shapes [64,400,200] [32,400,200] [64,800,380]
            [8,1000,380] (ragged lengths, t_x == 1 and t_y == t_x items),
-           both the fused and the two-pass route, with CUDA-event times
+           both the fused and the two-pass route; per kernel the call time
+           (`ms`, CUDA events around the Python call) and the kernel's own
+           device time (`kernel_ms`, a burst of calls queued behind a
+           sleep); then mas_fwd's time per row against chunks per lane
   serve    flagship config, seeded random weights: several requests of
            cleaned IPA text -> int16 PCM
   forward  flagship generator training forward on a batch of 16, once on
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -42,6 +48,11 @@ REPLACES = {
     "mas_fwd": "mb_istft_vits_tpu/ops/mas_pallas.py:147",
     "mas_bwd": "mb_istft_vits_tpu/ops/mas_pallas.py:175",
 }
+# the redesigned DP kernels, as ptxas and cuobjdump name them
+DP_KERNELS = ("mas_fused_kernel", "mas_fwd_kernel")
+# mas_fwd at T_x = 32 K for each one-warp instantiation K: time per row
+# against the chunks per lane
+ROW_SCAN = [(16, 800, 128), (16, 800, 256), (16, 800, 384), (16, 800, 512)]
 KERNEL_SHAPES = [(64, 400, 200), (32, 400, 200), (64, 800, 380),
                  (8, 1000, 380)]
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 outside the
@@ -71,6 +82,29 @@ def time_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernel_time_ms(fn, reps: int = 2 * REPS, bursts: int = 3) -> float:
+    """Device time of one call of fn, the wrapper's host work (allocation,
+    checks, the ctypes call) left out: the stream first sleeps, so the host
+    queues `reps` calls before the first one runs and the card runs them
+    back to back; CUDA events time the burst. Median over `bursts`."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(bursts):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)  # ~50 ms: longer than queueing reps
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -136,8 +170,8 @@ def ragged_problem(shape, seed):
 
 def check_kernels(neg_cent, mask, lengths):
     """Every MAS kernel against its plain version on the same inputs.
-    Returns {kernel: {shape, bit_exact, max_abs_err, ms, plain_ms,
-    bound_ms, bound_by}}."""
+    Returns {kernel: {shape, bit_exact, max_abs_err, ms, kernel_ms,
+    us_per_row, plain_ms, bound_ms, bound_by}}."""
     import torch
 
     from mb_istft_vits_torch.ops import mas
@@ -185,6 +219,8 @@ def check_kernels(neg_cent, mask, lengths):
                "bound_by": bounds[name][1]}
         kernel_fn, plain_fn = timers[name]
         row["ms"] = time_ms(kernel_fn)
+        row["kernel_ms"] = kernel_time_ms(kernel_fn)
+        row["us_per_row"] = row["kernel_ms"] * 1e3 / t_y
         row["plain_ms"] = time_ms(plain_fn)
         out[name] = row
     return out
@@ -206,17 +242,57 @@ def phase_device():
     return smi
 
 
+def sass_loop_lengths():
+    """{DP kernel instantiation: SASS instructions in its row loop, the
+    shortest loop that holds both a ballot and a cp.async} from cuobjdump
+    of the built library."""
+    from mb_istft_vits_torch import kernels
+
+    cuobjdump = os.path.join(os.path.dirname(kernels.find_nvcc()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", kernels.library_path()],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    lengths = {}
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = re.search(r"(mas_[a-z]+_kernel)I(\w*?)EEv",
+                         block.split("\n")[0])
+        if not name or name.group(1) not in DP_KERNELS:
+            continue
+        code = [(int(a, 16), op) for a, op in
+                re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block)]
+        addrs = [a for a, _ in code]
+        loops = []
+        for i, (addr, op) in enumerate(code):
+            back = re.search(r"BRA (0x[0-9a-f]+)", op)
+            if not back or int(back.group(1), 16) >= addr:
+                continue
+            body = " ".join(o for _, o in
+                            code[addrs.index(int(back.group(1), 16)):i + 1])
+            if "VOTE" in body and "LDGSTS" in body:
+                loops.append(i + 1 - addrs.index(int(back.group(1), 16)))
+        args = ",".join(re.findall(r"L[ib](\d+)E", name.group(2)))
+        lengths[f"{name.group(1)}<{args}>"] = min(loops) if loops else None
+    return lengths
+
+
 def phase_build():
     from mb_istft_vits_torch import kernels
 
     t0 = time.perf_counter()
     report = kernels.build()
     lib = kernels.library()
+    # every instantiation of the DP kernels must keep its arrays in registers
+    dp = {name: s for name, s in kernels.ptxas_spills(report).items()
+          if any(k in name for k in DP_KERNELS)}
     emit("build", seconds=time.perf_counter() - t0,
          library=os.path.relpath(kernels.library_path(), REPO),
          max_shared_bytes=lib.mas_max_shared_bytes(0),
+         dp_spill_bytes=dp, row_loop_instructions=sass_loop_lengths(),
          ptxas=[line.strip() for line in report
                 if "registers" in line or "Compiling entry" in line])
+    if not dp or any(s != (0, 0) for s in dp.values()):
+        raise AssertionError(f"DP kernels spill or are missing: {dp}")
 
 
 def phase_kernels():
@@ -237,7 +313,19 @@ def phase_kernels():
                                      f"at {list(shape)}: {row}")
         del neg_cent, mask
         torch.cuda.empty_cache()
-    emit("kernels", checks=rows)
+    scan = []
+    for i, shape in enumerate(ROW_SCAN):
+        neg_cent, mask, (t_ys, t_xs) = ragged_problem(shape, seed=10 + i)
+        nc = (neg_cent * mask).contiguous()
+        ms = kernel_time_ms(lambda: mas.mas_forward_bits(nc, t_ys, t_xs))
+        scan.append({"shape": list(shape), "chunks_per_lane": shape[2] // 32,
+                     "kernel_ms": ms, "us_per_row": ms * 1e3 / shape[1]})
+    # least squares us_per_row = fixed + per_chunk * chunks: the part of a
+    # row that does not grow with its columns, and the part that does
+    per_chunk, fixed = statistics.linear_regression(
+        [r["chunks_per_lane"] for r in scan], [r["us_per_row"] for r in scan])
+    fit = {"us_per_row_fixed": fixed, "us_per_chunk": per_chunk}
+    emit("kernels", checks=rows, mas_fwd_row_scan=scan, mas_fwd_row_fit=fit)
     return rows
 
 
@@ -426,10 +514,12 @@ def main() -> int:
                 [row["bit_exact"]] + [c["bit_exact"] for c in shapes]),
             "max_abs_err": max([row["max_abs_err"]]
                                + [c["max_abs_err"] for c in shapes]),
-            "ms": row["ms"], "kernel_ms": row["ms"],
+            "ms": row["ms"], "kernel_ms": row["kernel_ms"],
+            "us_per_row": row["us_per_row"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "shapes": [{k: c[k] for k in ("shape", "auto_route", "ms",
+                                          "kernel_ms", "us_per_row",
                                           "plain_ms", "bound_ms",
                                           "bit_exact")} for c in shapes],
         })

@@ -13,10 +13,11 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
-from typing import List
+from typing import Dict, List, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "csrc", "mas.cu")
@@ -45,10 +46,13 @@ def library_path() -> str:
 
 def build() -> List[str]:
     """Compile the kernels unless the current build exists. Returns the
-    compiler's report (registers, shared memory, spills per kernel)."""
+    compiler's report (registers, shared memory, spills per kernel), kept
+    beside the library so that a cached build returns it too."""
     out = library_path()
-    if os.path.exists(out):
-        return []
+    report = out + ".ptxas.txt"
+    if os.path.exists(out) and os.path.exists(report):
+        with open(report, encoding="utf-8") as f:
+            return f.read().splitlines()
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -59,11 +63,30 @@ def build() -> List[str]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{proc.stdout}\n{proc.stderr}")
+        with open(report, "w", encoding="utf-8") as f:
+            f.write(proc.stdout + proc.stderr)
         os.replace(tmp, out)  # atomic: concurrent builds agree
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return (proc.stdout + proc.stderr).splitlines()
+
+
+def ptxas_spills(report: List[str]) -> Dict[str, Tuple[int, int]]:
+    """{function: (spill store bytes, spill load bytes)} from the report of
+    `nvcc -Xptxas -v` (function names as ptxas prints them, mangled)."""
+    spills, name = {}, None
+    for line in report:
+        found = re.search(r"Function properties for (\S+)", line)
+        if found:
+            name = found.group(1)
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if found and name is not None:
+            spills[name] = (int(found.group(1)), int(found.group(2)))
+            name = None
+    return spills
 
 
 @functools.lru_cache(maxsize=None)

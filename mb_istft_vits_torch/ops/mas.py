@@ -183,8 +183,8 @@ def mas_backtrack(dec: torch.Tensor, t_ys: torch.Tensor, t_xs: torch.Tensor,
 
 
 def fused_fits(t_y: int, t_x: int, device: torch.device) -> bool:
-    """Whether the fused kernel's shared memory (decision bits, two DP rows,
-    the path cursors) fits one block of `device`."""
+    """Whether the fused kernel's shared memory (the DP's neg_cent ring,
+    decision bits, path cursors) fits one block of `device`."""
     lib = kernels.library()
     index = device.index if device.index is not None else \
         torch.cuda.current_device()

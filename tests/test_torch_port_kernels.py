@@ -17,11 +17,22 @@ import torch
 from mb_istft_vits_torch.ops import mas
 
 # (B, T_y, T_x, t_ys, t_xs): ragged items, t_x == 1, t_y == t_x, T_x > 32
-# (several decision words per row) and T_y not a multiple of 8
+# (several decision words per row) and T_y not a multiple of 8; then rows
+# that do not start on a 16-byte boundary (T_x = 1 mod 4), T_x = 32 K at
+# each one-warp instantiation K in {4, 8, 12, 16}, T_x > 512 (three warps
+# per item), t_y == 1 and T_y == 1000
 CASES = [
     (4, 33, 17, [33, 9, 17, 5], [1, 9, 17, 5]),
     (3, 29, 29, [29, 29, 20], [29, 1, 20]),
     (5, 130, 70, [130, 70, 100, 1, 64], [70, 70, 33, 1, 40]),
+    (3, 61, 41, [61, 41, 50], [41, 41, 17]),
+    (2, 140, 128, [140, 128], [128, 100]),
+    (2, 300, 256, [300, 256], [256, 129]),
+    (2, 400, 384, [400, 390], [384, 257]),
+    (2, 520, 512, [520, 512], [512, 385]),
+    (2, 1100, 1050, [1100, 800], [1050, 513]),
+    (3, 7, 5, [1, 7, 3], [1, 5, 3]),
+    (2, 1000, 380, [1000, 640], [380, 201]),
 ]
 
 
@@ -66,6 +77,21 @@ def test_forward_bits_and_backtrack_match_plain_halves(cuda_device):
     assert torch.equal(mas.unpack_decisions(bits, nc.shape[2]) & rows,
                        dec & rows)
     path = mas.mas_backtrack(mas.pack_decisions(dec), t_ys, t_xs, nc.shape[2])
+    assert torch.equal(path, mas.mas_backtrack_plain(dec, t_ys, t_xs))
+
+
+@pytest.mark.cuda
+def test_forward_bits_at_the_column_limit(cuda_device):
+    """T_x = mas_max_columns(): sixteen warps per item on the DP."""
+    t_x = 8192
+    case = (1, t_x + 40, t_x, [t_x + 40], [t_x])
+    neg_cent, mask = _problem(case, cuda_device)
+    nc = (neg_cent * mask).contiguous()
+    t_ys, t_xs = mas.mas_lengths(mask)
+    dec = mas.mas_decisions_plain(nc, t_ys, t_xs)
+    bits = mas.mas_forward_bits(nc, t_ys, t_xs)
+    assert torch.equal(mas.unpack_decisions(bits, t_x), dec)
+    path = mas.mas_backtrack(bits, t_ys, t_xs, t_x)
     assert torch.equal(path, mas.mas_backtrack_plain(dec, t_ys, t_xs))
 
 

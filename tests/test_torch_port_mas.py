@@ -114,3 +114,18 @@ def test_kernel_library_raises_without_nvcc(monkeypatch, tmp_path):
             kernels.library()
     finally:
         kernels.library.cache_clear()
+
+
+def test_ptxas_spill_report_is_read_per_function():
+    """chip_smoke.py fails the build when a DP kernel spills; the report it
+    reads is nvcc's `-Xptxas -v` output."""
+    report = [
+        "ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z3fooPf",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, 380 bytes cmem[0]",
+        "ptxas info    : Function properties for _Z3barPf",
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads",
+    ]
+    assert kernels.ptxas_spills(report) == {"_Z3fooPf": (0, 0),
+                                            "_Z3barPf": (4, 12)}
