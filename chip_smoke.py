@@ -6,21 +6,26 @@
 Phases, one JSON line each:
   device   the card (torch and nvidia-smi)
   build    nvcc builds the MAS kernels from mb_istft_vits_torch/csrc;
-           fails if ptxas reports a spill in the DP kernels; counts the
-           SASS instructions of each DP kernel's row loop
+           fails if ptxas reports a spill in any MAS kernel;
+           counts the SASS instructions of each DP kernel's row loop and
+           of mas_bwd's window loop (32 rows); fails unless a mas_bwd
+           backtrack block leaves its SM no room for a path-writer block
   kernels  each MAS kernel against its plain PyTorch version, bit for bit,
            at the training shapes [64,400,200] [32,400,200] [64,800,380]
            [8,1000,380] (ragged lengths, t_x == 1 and t_y == t_x items),
            both the fused and the two-pass route; per kernel the call time
            (`ms`, CUDA events around the Python call) and the kernel's own
            device time (`kernel_ms`, a burst of calls queued behind a
-           sleep); then mas_fwd's time per row against chunks per lane
+           sleep); then mas_fwd's time per row against chunks per lane,
+           and mas_bwd's time against rows and path cells
   serve    flagship config, seeded random weights: several requests of
            cleaned IPA text -> int16 PCM
   forward  flagship generator training forward on a batch of 16, once on
            the fused MAS kernel and once on the two-pass pair
 Then one {"kernels": [...]} line (launch counts from the serve + forward
-run, times, bounds), the card's name and power limit as nvidia-smi prints
+run, times, bounds; `launches` counts the first kernel of a port and
+`launches_by_kernel` each of its kernels: mas_bwd is mas_bwd_kernel and
+mas_path_kernel), the card's name and power limit as nvidia-smi prints
 them, and last {"ok": true, "device": {...}}.
 
 Any failed phase raises: the script exits non-zero and prints no result
@@ -48,11 +53,22 @@ REPLACES = {
     "mas_fwd": "mb_istft_vits_tpu/ops/mas_pallas.py:147",
     "mas_bwd": "mb_istft_vits_tpu/ops/mas_pallas.py:175",
 }
-# the redesigned DP kernels, as ptxas and cuobjdump name them
-DP_KERNELS = ("mas_fused_kernel", "mas_fwd_kernel")
+# the launch counts (ops/mas.py) of each port's kernels
+KERNELS_OF = {"mas_fused": ("mas_fused",), "mas_fwd": ("mas_fwd",),
+              "mas_bwd": ("mas_bwd", "mas_path")}
+# the MAS kernels as ptxas and cuobjdump name them, each with the SASS ops
+# that mark its main loop: the DP's row loop (ballot, cp.async) and
+# mas_bwd's window loop (shuffles, loads); none of them may spill
+LOOP_OPS = {"mas_fused_kernel": ("VOTE", "LDGSTS"),
+            "mas_fwd_kernel": ("VOTE", "LDGSTS"),
+            "mas_bwd_kernel": ("SHFL", "LDG")}
+SPILL_CHECKED = (*LOOP_OPS, "mas_path_kernel")
 # mas_fwd at T_x = 32 K for each one-warp instantiation K: time per row
 # against the chunks per lane
 ROW_SCAN = [(16, 800, 128), (16, 800, 256), (16, 800, 384), (16, 800, 512)]
+# mas_bwd against rows (t_y at T_x = 365) and path cells (T_x at T_y = 800)
+BWD_SCAN = [(16, 400, 365), (16, 800, 365), (16, 1600, 365), (16, 800, 128),
+            (16, 800, 1024)]
 KERNEL_SHAPES = [(64, 400, 200), (32, 400, 200), (64, 800, 380),
                  (8, 1000, 380)]
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 outside the
@@ -243,9 +259,9 @@ def phase_device():
 
 
 def sass_loop_lengths():
-    """{DP kernel instantiation: SASS instructions in its row loop, the
-    shortest loop that holds both a ballot and a cp.async} from cuobjdump
-    of the built library."""
+    """{kernel instantiation: SASS instructions in its main loop, the
+    shortest loop that holds the kernel's LOOP_OPS} from cuobjdump of the
+    built library."""
     from mb_istft_vits_torch import kernels
 
     cuobjdump = os.path.join(os.path.dirname(kernels.find_nvcc()),
@@ -255,9 +271,9 @@ def sass_loop_lengths():
                           check=True).stdout
     lengths = {}
     for block in re.split(r"\n\s*Function : ", sass)[1:]:
-        name = re.search(r"(mas_[a-z]+_kernel)I(\w*?)EEv",
+        name = re.search(r"(mas_[a-z]+_kernel)(?:I(\w*?)EEv)?",
                          block.split("\n")[0])
-        if not name or name.group(1) not in DP_KERNELS:
+        if not name or name.group(1) not in LOOP_OPS:
             continue
         code = [(int(a, 16), op) for a, op in
                 re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block)]
@@ -269,9 +285,9 @@ def sass_loop_lengths():
                 continue
             body = " ".join(o for _, o in
                             code[addrs.index(int(back.group(1), 16)):i + 1])
-            if "VOTE" in body and "LDGSTS" in body:
+            if all(op in body for op in LOOP_OPS[name.group(1)]):
                 loops.append(i + 1 - addrs.index(int(back.group(1), 16)))
-        args = ",".join(re.findall(r"L[ib](\d+)E", name.group(2)))
+        args = ",".join(re.findall(r"L[ib](\d+)E", name.group(2) or ""))
         lengths[f"{name.group(1)}<{args}>"] = min(loops) if loops else None
     return lengths
 
@@ -282,17 +298,23 @@ def phase_build():
     t0 = time.perf_counter()
     report = kernels.build()
     lib = kernels.library()
-    # every instantiation of the DP kernels must keep its arrays in registers
-    dp = {name: s for name, s in kernels.ptxas_spills(report).items()
-          if any(k in name for k in DP_KERNELS)}
+    # every instantiation of these kernels must keep its arrays in registers
+    spills = {name: s for name, s in kernels.ptxas_spills(report).items()
+              if any(k in name for k in SPILL_CHECKED)}
+    owns_sm = lib.mas_bwd_owns_sm(0)
     emit("build", seconds=time.perf_counter() - t0,
          library=os.path.relpath(kernels.library_path(), REPO),
          max_shared_bytes=lib.mas_max_shared_bytes(0),
-         dp_spill_bytes=dp, row_loop_instructions=sass_loop_lengths(),
+         mas_bwd_owns_sm=owns_sm,
+         spill_bytes=spills, loop_instructions=sass_loop_lengths(),
          ptxas=[line.strip() for line in report
                 if "registers" in line or "Compiling entry" in line])
-    if not dp or any(s != (0, 0) for s in dp.values()):
-        raise AssertionError(f"DP kernels spill or are missing: {dp}")
+    missing = [k for k in SPILL_CHECKED if not any(k in n for n in spills)]
+    if missing or any(s != (0, 0) for s in spills.values()):
+        raise AssertionError(f"kernels spill or are missing: {spills}")
+    if owns_sm != 1:
+        raise AssertionError("a path-writer block fits beside a mas_bwd "
+                             f"backtrack block (mas_bwd_owns_sm={owns_sm})")
 
 
 def phase_kernels():
@@ -325,8 +347,37 @@ def phase_kernels():
     per_chunk, fixed = statistics.linear_regression(
         [r["chunks_per_lane"] for r in scan], [r["us_per_row"] for r in scan])
     fit = {"us_per_row_fixed": fixed, "us_per_chunk": per_chunk}
-    emit("kernels", checks=rows, mas_fwd_row_scan=scan, mas_fwd_row_fit=fit)
+    bwd_scan, bwd_fit = mas_bwd_scan()
+    emit("kernels", checks=rows, mas_fwd_row_scan=scan, mas_fwd_row_fit=fit,
+         mas_bwd_scan=bwd_scan, mas_bwd_fit=bwd_fit)
     return rows
+
+
+def mas_bwd_scan():
+    """mas_bwd's own time at BWD_SCAN, each backtracking the decisions of
+    mas_fwd on a ragged problem (item 0 full), and the least-squares split
+    kernel_ms = fixed + per_row * T_y + per_cell * T_y * T_x of one item:
+    the backtrack's rows and the path slab's cells."""
+    import numpy as np
+    import torch
+
+    from mb_istft_vits_torch.ops import mas
+
+    scan = []
+    for i, shape in enumerate(BWD_SCAN):
+        neg_cent, mask, (t_ys, t_xs) = ragged_problem(shape, seed=20 + i)
+        bits = mas.mas_forward_bits((neg_cent * mask).contiguous(), t_ys, t_xs)
+        ms = kernel_time_ms(lambda: mas.mas_backtrack(bits, t_ys, t_xs,
+                                                      shape[2]))
+        scan.append({"shape": list(shape), "kernel_ms": ms,
+                     "us_per_row": ms * 1e3 / shape[1]})
+        del neg_cent, mask, bits
+    torch.cuda.empty_cache()
+    terms = np.array([[1.0, t_y, t_y * t_x] for _, t_y, t_x in BWD_SCAN])
+    (fixed, per_row, per_cell), *_ = np.linalg.lstsq(
+        terms, np.array([r["kernel_ms"] for r in scan]), rcond=None)
+    return scan, {"us_fixed": fixed * 1e3, "ns_per_row": per_row * 1e6,
+                  "ns_per_cell": per_cell * 1e6}
 
 
 def _texts(n: int):
@@ -471,7 +522,9 @@ def phase_forward():
     emit("forward", batch=b, t_x_max=t_x, t_y_max=t_y,
          seconds_fused=timings["auto"], seconds_two_pass=timings["two_pass"],
          l_length_mean=float(l_length.mean()), checks=checks,
-         profile_fused=profile_call(lambda: run("auto")))
+         # twice: the first may still grow the caching allocator
+         profile_fused=profile_call(lambda: run("auto")),
+         profile_fused_again=profile_call(lambda: run("auto")))
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"training forward checks failed: {failed}")
@@ -510,6 +563,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
+            "launches_by_kernel": {f"{k}_kernel": launches[k]
+                                   for k in KERNELS_OF[name]},
             "shape": row["shape"], "bit_exact": all(
                 [row["bit_exact"]] + [c["bit_exact"] for c in shapes]),
             "max_abs_err": max([row["max_abs_err"]]

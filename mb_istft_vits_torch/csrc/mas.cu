@@ -4,7 +4,8 @@
 //   mas_fused_kernel  <- _fused_kernel (DP forward + backtrack in one kernel,
 //                        decisions never leave on-chip memory)
 //   mas_fwd_kernel    <- _fwd_kernel   (DP forward, decisions to device memory)
-//   mas_bwd_kernel    <- _bwd_kernel   (backtrack from those decisions)
+//   mas_bwd_kernel,   <- _bwd_kernel   (backtrack from those decisions, then
+//   mas_path_kernel                     the path written from its cursors)
 // Semantics are those of ops/mas.py:maximum_path_numpy, the transcription of
 // the reference Cython DP, bit for bit:
 //   shifted = previous row moved right by one (x == 0: 0 on row 0, -1e9 after)
@@ -50,8 +51,22 @@
 // stores where aligned). Then warp 0 backtracks and the block writes the
 // ones. mas_fwd is the same DP core storing the bits to device memory. One
 // item per block: a batch of 16 fills 16 of 132 SMs, and each item's time is
-// its own row chain. mas_bwd keeps its first design: one warp backtracks,
-// then the block writes the whole path.
+// its own row chain.
+//
+// Design of mas_bwd (mas_bwd_kernel, then mas_path_kernel). Its work is
+// the backtrack, a chain of t_y dependent rows per item, and the path,
+// T_y * T_x floats per item written once. Bytes bound it (the path: 18.7 MB
+// at [16, 800, 365], 5.6 us at 3.35 TB/s); the chain is what keeps it above
+// that. One SM stores too slowly to write an item's path in the time of its
+// backtrack (PERF.md), so the path is written by the whole card: mas_bwd_kernel, one warp per item on an SM
+// of its own, backtracks (backtrack_windows) and writes each row's cursor
+// to a scratch; mas_path_kernel, launched behind it as a programmatic
+// dependent launch, starts at once on the other SMs, zeroes its tile of
+// rows with 16-byte stores, waits for the backtrack (griddepcontrol.wait)
+// and writes the tile's ones. A backtracked row costs a shift and an add
+// on a 32-bit word that a shuffle brought before the cursor got there; the
+// words come through a ring of shared memory filled kAhead windows of 32
+// rows ahead.
 //
 // Interface: plain C, loaded with ctypes. The caller allocates every buffer
 // and passes PyTorch's current stream; each entry point returns the
@@ -60,21 +75,37 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr float kNeg = -1e9f;
-constexpr int kBwdThreads = 512;
+constexpr int kTileRows = 32;       // mas_bwd: path rows per block of
+constexpr int kTileThreads = 256;   //   mas_path_kernel
+constexpr int kAhead = 4;           // mas_bwd: windows of words in flight
+constexpr int kSlots = 8;           //   ring slots, a power of two > kAhead
+constexpr int kSlotEntries = kAhead + 3;
+constexpr int kRingWords = kSlots * kSlotEntries * 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWideK = 16;          // chunks per lane on the multi-warp route
 constexpr int kMaxWarps = 16;       // T_x <= 16 * 32 * kWideK = 8192
 constexpr int kDepth = 8;           // ring rows, one-warp route
 constexpr int kWideDepth = 4;       // ring rows, multi-warp route
 constexpr int kZeroWarps = 3;       // mas_fused warps that zero the path
+constexpr int kMaxDevices = 64;     // mas_bwd: devices it remembers set up
 
 __host__ __device__ inline int n_words(int t_x_max) { return (t_x_max + 31) / 32; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 4-byte cp.async of src to dst; zeros to dst, reading nothing, unless
+// pred holds.
+__device__ __forceinline__ void copy4_zfill(uint32_t dst, const void* src,
+                                            bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(pred ? 4 : 0) : "memory");
 }
 
 // 4-byte cp.async of src to dst when pred holds.
@@ -258,16 +289,94 @@ __device__ void backtrack_warp(const uint32_t* bits, int words, int t_y,
   }
 }
 
-// Writes the item's whole [T_y, T_x] path, zeros included: a one at
-// (y, idx[y]) and nothing on rows whose idx is -1.
-__device__ void write_path(float* __restrict__ path, const int* idx,
-                           int T_y, int T_x) {
-  const size_t n = (size_t)T_y * T_x;
-  for (size_t i = threadIdx.x; i < n; i += blockDim.x) {
-    const int y = (int)(i / T_x);
-    const int x = (int)(i - (size_t)y * T_x);
-    path[i] = x == idx[y] ? 1.f : 0.f;
+// Backtrack of one item for mas_bwd, by the 32 lanes of one warp, with
+// nothing on the cursor's chain waiting for device memory. Window n covers
+// rows base = t_y - 1 - 32 n down to base - 31, lane l row base - l. From
+// the cursor p0 at the window's top, the window reads columns p0 - 31 ..
+// p0 only, so lane l cuts those 32 bits of its row from two decision words
+// with one funnel shift: S (bit i = column p0 - 31 + i). With m the moves
+// made so far in the window, row j's decision is the top bit of S_j << m,
+// and m grows by it: two dependent operations per row. S_j reaches the
+// warp by a shuffle that does not wait for the cursor.
+//
+// The cursor moves at most 32 columns a window, so when window n starts
+// with the cursor in word c, window n + k can need only the words
+// c - k - 1 .. c. Each lane copies those of its row for window n + kAhead
+// into a ring of shared memory with cp.async (zeros outside the item):
+// mas_path_kernel floods device memory with stores meanwhile, and under
+// that flood a load outlasts one window's walk (PERF.md). While walking
+// window n, each lane reads from the ring into registers the three words
+// c - 2 .. c that window n + 1 can need, so that a window's start waits on
+// no memory. Each lane reads back only the words it copied, so
+// cp.async.wait_group alone orders the two. Column 0's decision bit is
+// cleared on the way, which keeps the cursor at column 0 once there (the
+// rule "move left when x > 0").
+//
+// Lane l keeps m at row l of the window (one IMAD a row with a 0/1 factor)
+// and writes that row's cursor, p0 - m, to cursor[y] when the window ends:
+// one coalesced store a window, none on the chain. Rows y >= t_y and words
+// outside the item are never read. ring: kRingWords words of shared memory.
+__device__ void backtrack_windows(const uint32_t* __restrict__ bits, int words,
+                                  int t_y, int t_x, uint32_t* ring,
+                                  int* __restrict__ cursor) {
+  if (t_x <= 0) return;
+  const int lane = threadIdx.x & 31;
+  // slot of window n: entries 0 .. kAhead + 1 hold words top - kAhead - 1 ..
+  // top of this lane's row, entry kAhead + 2 holds top; entry i of all 32
+  // lanes is 32 consecutive words
+  const auto slot = [&](int n) {
+    return ring + (n & (kSlots - 1)) * kSlotEntries * 32 + lane;
+  };
+  const auto fetch = [&](int n, int top) {
+    const int y = t_y - 1 - 32 * n - lane;
+    const uint32_t* row = bits + (size_t)max(y, 0) * words;
+    uint32_t* dst = slot(n);
+#pragma unroll
+    for (int i = 0; i < kAhead + 2; ++i) {
+      const int w = top - kAhead - 1 + i;
+      copy4_zfill(smem_addr(dst + 32 * i), row + max(w, 0), y >= 0 && w >= 0);
+    }
+    dst[32 * (kAhead + 2)] = (uint32_t)top;
+    cp_async_commit();
+  };
+  // words c - 2 .. c of window n's rows, read from the ring: w2 = word c
+  uint32_t w2, w1, w0;
+  const auto take = [&](int n, int c) {
+    const uint32_t* src = slot(n);
+    const int i = c - (int)src[32 * (kAhead + 2)] + kAhead + 1;
+    const uint32_t col0 = ~1u;  // clears bit 0 of word 0
+    w2 = src[32 * i] & (c == 0 ? col0 : ~0u);
+    w1 = src[32 * (i - 1)] & (c == 1 ? col0 : ~0u);
+    w0 = src[32 * (i - 2)] & (c == 2 ? col0 : ~0u);
+  };
+  uint32_t is_lane[32];  // 1 on lane j: lane j keeps m of row j
+#pragma unroll
+  for (int j = 0; j < 32; ++j) is_lane[j] = opaque(lane == j ? 1u : 0u);
+  int index = t_x - 1;
+  int top = index >> 5;  // window n's cursor is in word top or top - 1
+  for (int n = 0; n < kAhead; ++n) fetch(n, top);
+  cp_async_wait<kAhead - 1>();
+  take(0, top);
+  for (int base = t_y - 1, n = 0; base >= 0; base -= 32, ++n) {
+    const int c = index >> 5;
+    const bool at_top = c == top;
+    const uint32_t s = __funnelshift_rc(at_top ? w1 : w0, at_top ? w2 : w1,
+                                        (index & 31) + 1);
+    fetch(n + kAhead, c);
+    cp_async_wait<kAhead - 1>();  // window n + 1's words have landed
+    take(n + 1, c);
+    top = c;
+    uint32_t m = 0, mine = 0;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const uint32_t s_j = __shfl_sync(kFull, s, j);
+      mine += m * is_lane[j];
+      m += (s_j << m) >> 31;
+    }
+    if (base - lane >= 0) cursor[base - lane] = index - (int)mine;
+    index -= (int)m;
   }
+  cp_async_wait<0>();
 }
 
 // Zeroes n floats at p by threads t of nt: scalar stores up to the first
@@ -342,20 +451,43 @@ mas_fwd_kernel(const float* __restrict__ nc,
       dec + (size_t)blockIdx.x * T_y * n_words(T_x), ring, edge, warps);
 }
 
-__global__ void mas_bwd_kernel(const uint32_t* __restrict__ dec,
-                               const int* __restrict__ t_ys,
-                               const int* __restrict__ t_xs,
-                               float* __restrict__ path, int T_y, int T_x) {
-  extern __shared__ int idx[];  // T_y
+// mas_bwd, first kernel. Block: one warp, item blockIdx.x. Backtracks and
+// writes the cursor of every row y < t_y to cursor[b][y]. It lets
+// mas_path_kernel start at once (programmatic dependent launch). Shared
+// memory: the ring of backtrack_windows, in the first kRingWords words of
+// all that a block may take (see mas_bwd).
+__global__ void __launch_bounds__(32, 1)
+mas_bwd_kernel(const uint32_t* __restrict__ dec, const int* __restrict__ t_ys,
+               const int* __restrict__ t_xs, int* __restrict__ cursor,
+               int T_y, int T_x) {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  extern __shared__ uint32_t ring[];
   const int words = n_words(T_x);
   int t_y, t_x;
   item_lengths(t_ys, t_xs, T_y, T_x, &t_y, &t_x);
-  for (int y = threadIdx.x; y < T_y; y += blockDim.x) idx[y] = -1;
-  __syncthreads();
-  if (threadIdx.x < 32)
-    backtrack_warp(dec + (size_t)blockIdx.x * T_y * words, words, t_y, t_x, idx);
-  __syncthreads();
-  write_path(path + (size_t)blockIdx.x * T_y * T_x, idx, T_y, T_x);
+  backtrack_windows(dec + (size_t)blockIdx.x * T_y * words, words, t_y, t_x,
+                    ring, cursor + (size_t)blockIdx.x * T_y);
+}
+
+// mas_bwd, second kernel. Block (b, tile) writes rows kTileRows * tile ..
+// + kTileRows of item b's path whole: the zeros first, while the backtrack
+// runs on other SMs, then, once mas_bwd_kernel has finished, the ones.
+__global__ void __launch_bounds__(kTileThreads)
+mas_path_kernel(const int* __restrict__ t_ys, const int* __restrict__ t_xs,
+                const int* __restrict__ cursor, float* __restrict__ path,
+                int T_y, int T_x) {
+  const int y0 = blockIdx.y * kTileRows;
+  const int y1 = min(y0 + kTileRows, T_y);
+  const size_t row0 = (size_t)blockIdx.x * T_y;  // item's first row
+  zero_slab(path + (row0 + y0) * T_x, (size_t)(y1 - y0) * T_x, threadIdx.x,
+            kTileThreads);
+  int t_y, t_x;
+  item_lengths(t_ys, t_xs, T_y, T_x, &t_y, &t_x);
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // cursor is written
+  __syncthreads();  // this tile's zeros before its ones
+  if (t_x > 0)
+    for (int y = y0 + threadIdx.x; y < min(y1, t_y); y += kTileThreads)
+      path[(row0 + y) * T_x + cursor[row0 + y]] = 1.f;
 }
 
 // The DP route of a row of T_x columns: chunks per lane, warps per item,
@@ -439,14 +571,67 @@ int mas_fwd(const float* nc, const int* t_ys, const int* t_xs, uint32_t* dec,
   return cudaGetLastError();
 }
 
-int mas_bwd(const uint32_t* dec, const int* t_ys, const int* t_xs, float* path,
-            int B, int T_y, int T_x, void* stream) {
-  const size_t smem = sizeof(int) * (size_t)T_y;
-  cudaError_t e = cudaFuncSetAttribute(
-      mas_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Whether a mas_bwd_kernel block, asking for all the shared memory a block
+// may take, leaves its SM no room for a mas_path_kernel block: 1 if so, 0
+// if not, -1 on error. It does when the SM's shared memory less that block
+// and its reserve (each block holds one) is below one more reserve plus
+// the path block's static shared memory (H100: 233,472 - (232,448 +
+// 1,024) = 0 bytes left).
+int mas_bwd_owns_sm(int device) {
+  int per_sm = 0, reserved = 0;
+  const int per_block = mas_max_shared_bytes(device);
+  cudaFuncAttributes path_attr;
+  if (per_block < 0 ||
+      cudaDeviceGetAttribute(&per_sm,
+                             cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                             device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock,
+                             device) != cudaSuccess ||
+      cudaFuncGetAttributes(&path_attr, mas_path_kernel) != cudaSuccess)
+    return -1;
+  const long long left = (long long)per_sm - per_block - reserved;
+  return left < reserved + (long long)path_attr.sharedSizeBytes ? 1 : 0;
+}
+
+// cursor: int32 [B, T_y] scratch. Two launches on the stream: the
+// backtrack, then the path writer, allowed to start before the backtrack
+// ends (it waits for it with griddepcontrol.wait before the ones). A
+// backtrack block asks for all the shared memory a block may take so that
+// no path-writer block shares its SM (mas_bwd_owns_sm, checked by
+// chip_smoke.py's build): their stores would share the SM's memory
+// pipeline with the chain's copies and slow it (PERF.md). The request is
+// set once per device.
+int mas_bwd(const uint32_t* dec, const int* t_ys, const int* t_xs,
+            int* cursor, float* path, int B, int T_y, int T_x, void* stream) {
+  static std::atomic<int> bwd_smem[kMaxDevices];  // 0: not set yet
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return e;
-  mas_bwd_kernel<<<B, kBwdThreads, smem, (cudaStream_t)stream>>>(
-      dec, t_ys, t_xs, path, T_y, T_x);
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  int smem = bwd_smem[device].load(std::memory_order_relaxed);
+  if (smem == 0) {  // two threads may both set it, to the same value
+    smem = mas_max_shared_bytes(device);
+    e = cudaFuncSetAttribute(mas_bwd_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    bwd_smem[device].store(smem, std::memory_order_relaxed);
+  }
+  mas_bwd_kernel<<<B, 32, smem, (cudaStream_t)stream>>>(dec, t_ys, t_xs, cursor,
+                                                        T_y, T_x);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B, (T_y + kTileRows - 1) / kTileRows);
+  cfg.blockDim = dim3(kTileThreads);
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, mas_path_kernel, t_ys, t_xs,
+                         static_cast<const int*>(cursor), path, T_y, T_x);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 

@@ -96,12 +96,16 @@ def library() -> ctypes.CDLL:
     build()
     lib = ctypes.CDLL(library_path())
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("mas_fused", "mas_fwd", "mas_bwd"):
+    for name in ("mas_fused", "mas_fwd"):
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
         fn.restype = i32
-    lib.mas_max_shared_bytes.argtypes = [i32]
-    lib.mas_max_shared_bytes.restype = i32
+    lib.mas_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.mas_bwd.restype = i32
+    for name in ("mas_max_shared_bytes", "mas_bwd_owns_sm"):
+        fn = getattr(lib, name)
+        fn.argtypes = [i32]
+        fn.restype = i32
     lib.mas_fused_shared_bytes.argtypes = [i32, i32]
     lib.mas_fused_shared_bytes.restype = ctypes.c_longlong
     lib.mas_max_columns.argtypes = []

@@ -23,8 +23,9 @@ from mb_istft_vits_torch import kernels
 _MAX_NEG = -1e9
 
 # Launches of each kernel in this process. Each wrapper adds one where it
-# launches its kernel, and nowhere else.
-launch_counts = {"mas_fused": 0, "mas_fwd": 0, "mas_bwd": 0}
+# launches its kernel, and nowhere else: `mas_backtrack` launches two,
+# mas_bwd_kernel ("mas_bwd") and mas_path_kernel ("mas_path").
+launch_counts = {"mas_fused": 0, "mas_fwd": 0, "mas_bwd": 0, "mas_path": 0}
 
 
 def reset_launch_counts() -> None:
@@ -161,7 +162,9 @@ def mas_forward_bits(nc: torch.Tensor, t_ys: torch.Tensor,
 def mas_backtrack(dec: torch.Tensor, t_ys: torch.Tensor, t_xs: torch.Tensor,
                   t_x_max: int) -> torch.Tensor:
     """Backtrack (replaces `_bwd_kernel`): decision bits from
-    `mas_forward_bits` -> path f32 [B, T_y, t_x_max]."""
+    `mas_forward_bits` -> path f32 [B, T_y, t_x_max]. Two kernels: the
+    backtrack writes each row's cursor to an int32 [B, T_y] scratch, and
+    the path writer, started behind it, writes every path cell."""
     if not dec.is_cuda:
         raise ValueError(f"the MAS kernels take CUDA tensors; got {dec.device}")
     b, t_y, words = dec.shape
@@ -173,12 +176,14 @@ def mas_backtrack(dec: torch.Tensor, t_ys: torch.Tensor, t_xs: torch.Tensor,
     _check_inputs(path, t_ys, t_xs)
     if path.numel() == 0:
         return path
+    cursor = torch.empty((b, t_y), dtype=torch.int32, device=dec.device)
     with torch.cuda.device(dec.device):
         code = kernels.library().mas_bwd(
-            dec.data_ptr(), t_ys.data_ptr(), t_xs.data_ptr(), path.data_ptr(),
-            b, t_y, t_x_max, _stream(dec))
+            dec.data_ptr(), t_ys.data_ptr(), t_xs.data_ptr(),
+            cursor.data_ptr(), path.data_ptr(), b, t_y, t_x_max, _stream(dec))
     kernels.check(code, "mas_bwd")
     launch_counts["mas_bwd"] += 1
+    launch_counts["mas_path"] += 1
     return path
 
 

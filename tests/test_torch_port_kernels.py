@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from mb_istft_vits_torch.ops import mas
+from torch_port_mas_bits import BACKTRACK_CASES, PATTERNS, decisions
 
 # (B, T_y, T_x, t_ys, t_xs): ragged items, t_x == 1, t_y == t_x, T_x > 32
 # (several decision words per row) and T_y not a multiple of 8; then rows
@@ -96,6 +97,24 @@ def test_forward_bits_at_the_column_limit(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pattern", PATTERNS)
+@pytest.mark.parametrize("case", sorted(BACKTRACK_CASES))
+def test_backtrack_bit_exact_on_arbitrary_decisions(cuda_device, case,
+                                                    pattern):
+    """mas_backtrack on decisions the DP never produces: all ones, all
+    zeros, random, runs of moves across words inside one window; t_x at
+    31..65, 0 and 1, t_y below and across windows, T_x = 8192; rows
+    y >= t_y hold the complement of the pattern and must not be read."""
+    dec, t_ys, t_xs = (torch.from_numpy(a).to(cuda_device)
+                       for a in decisions(case, pattern))
+    path = mas.mas_backtrack(mas.pack_decisions(dec), t_ys, t_xs,
+                             dec.shape[2])
+    plain = mas.mas_backtrack_plain(dec, t_ys, t_xs)
+    torch.cuda.synchronize()
+    assert torch.equal(path, plain)
+
+
+@pytest.mark.cuda
 def test_launch_counts_and_refusals(cuda_device):
     neg_cent, mask = _problem(CASES[0], cuda_device)
     before = dict(mas.launch_counts)
@@ -104,6 +123,7 @@ def test_launch_counts_and_refusals(cuda_device):
     assert mas.launch_counts["mas_fused"] == before["mas_fused"] + 1
     assert mas.launch_counts["mas_fwd"] == before["mas_fwd"] + 1
     assert mas.launch_counts["mas_bwd"] == before["mas_bwd"] + 1
+    assert mas.launch_counts["mas_path"] == before["mas_path"] + 1
     t_ys, t_xs = mas.mas_lengths(mask)
     with pytest.raises(ValueError):
         mas.mas_fused(neg_cent.double(), t_ys, t_xs)

@@ -16,6 +16,7 @@ from mb_istft_vits_tpu.ops.mas import maximum_path_numpy
 
 from mb_istft_vits_torch import kernels
 from mb_istft_vits_torch.ops import mas
+from torch_port_mas_bits import BACKTRACK_CASES, PATTERNS, decisions
 
 
 def _problem(rng, b, t_y, t_x, t_ys=None, t_xs=None):
@@ -72,6 +73,47 @@ def test_plain_matches_oracle_and_pallas(interpret_pallas, case):
         np.testing.assert_array_equal(ours.numpy(), pallas, err_msg=force)
 
 
+def _pallas_backtrack(dec, t_ys, t_xs):
+    """The JAX package's `_bwd_kernel` in interpret mode, called with the
+    specs of `_maximum_path_two_pass`: decisions [B, T_y, T_x] (as int8
+    [T_y, B, T_x]) -> path [B, T_y, T_x]."""
+    import jax
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    from mb_istft_vits_tpu.ops.mas_pallas import _bwd_kernel
+
+    b, t_y_max, t_x_max = dec.shape
+    rev_spec = pl.BlockSpec((1, b, t_x_max), lambda i: (t_y_max - 1 - i, 0, 0),
+                            memory_space=pltpu.VMEM)
+    len_spec = pl.BlockSpec(memory_space=pltpu.VMEM)
+    path = pl.pallas_call(
+        _bwd_kernel,
+        grid=(t_y_max,),
+        in_specs=[len_spec, len_spec, rev_spec],
+        out_specs=rev_spec,
+        out_shape=jax.ShapeDtypeStruct((t_y_max, b, t_x_max), jnp.float32),
+        scratch_shapes=[pltpu.VMEM((b, t_x_max), jnp.float32)],
+        interpret=True,
+    )(jnp.asarray(t_ys)[:, None], jnp.asarray(t_xs)[:, None],
+      jnp.asarray(dec.transpose(1, 0, 2).astype(np.int8)))
+    return np.asarray(path).transpose(1, 0, 2)
+
+
+@pytest.mark.parametrize("pattern", PATTERNS)
+@pytest.mark.parametrize("case", sorted(BACKTRACK_CASES))
+def test_plain_backtrack_matches_pallas_on_arbitrary_decisions(case, pattern):
+    """The plain backtrack (the CUDA kernel's yardstick) against the TPU
+    kernel it replaces, on decisions the DP never produces (the same
+    patterns as the card test of mas_backtrack)."""
+    dec, t_ys, t_xs = decisions(case, pattern)
+    ours = mas.mas_backtrack_plain(torch.from_numpy(dec),
+                                   torch.from_numpy(t_ys),
+                                   torch.from_numpy(t_xs))
+    np.testing.assert_array_equal(ours.numpy(),
+                                  _pallas_backtrack(dec, t_ys, t_xs))
+
+
 def test_plain_halves_compose_and_bits_round_trip():
     rng = np.random.RandomState(1)
     neg_cent, mask = _problem(rng, b=3, t_y=90, t_x=70)  # 3 words per row
@@ -100,7 +142,8 @@ def test_kernel_route_refuses_cpu_tensors():
         mas.mas_backtrack(mas.pack_decisions(nc > 0), t_ys, t_xs, 4)
     with pytest.raises(ValueError):
         mas.maximum_path(nc, m, impl="fallback")
-    assert mas.launch_counts == {"mas_fused": 0, "mas_fwd": 0, "mas_bwd": 0}
+    assert mas.launch_counts == {"mas_fused": 0, "mas_fwd": 0, "mas_bwd": 0,
+                                 "mas_path": 0}
 
 
 def test_kernel_library_raises_without_nvcc(monkeypatch, tmp_path):
