@@ -22,11 +22,18 @@ Phases, one JSON line each:
            cleaned IPA text -> int16 PCM
   forward  flagship generator training forward on a batch of 16, once on
            the fused MAS kernel and once on the two-pass pair
-Then one {"kernels": [...]} line (launch counts from the serve + forward
-run, times, bounds; `launches` counts the first kernel of a port and
-`launches_by_kernel` each of its kernels: mas_bwd is mas_bwd_kernel and
-mas_path_kernel), the card's name and power limit as nvidia-smi prints
-them, and last {"ok": true, "device": {...}}.
+  train    flagship GAN training steps (D step, then G step against the
+           updated D) at batch 16 on seeded int16 audio, spectrogram on
+           the card: step times, the D/G split, peak memory, a profiled
+           step, a bf16 step; checks finite metrics, moved f32 weights, a
+           falling mel loss, one MAS launch per step, the step's alignment
+           against the plain MAS
+  train_cli the training CLI at a shrunk width: 3 steps, then resumed to 5
+Then one {"kernels": [...]} line (launch counts from the serve, forward,
+train and train_cli run, times, bounds; `launches` counts the first
+kernel of a port and `launches_by_kernel` each of its kernels: mas_bwd is
+mas_bwd_kernel and mas_path_kernel), the card's name and power limit as
+nvidia-smi prints them, and last {"ok": true, "device": {...}}.
 
 Any failed phase raises: the script exits non-zero and prints no result
 line. It needs no network, starts no process that outlives it, and
@@ -71,6 +78,8 @@ BWD_SCAN = [(16, 400, 365), (16, 800, 365), (16, 1600, 365), (16, 800, 128),
             (16, 800, 1024)]
 KERNEL_SHAPES = [(64, 400, 200), (32, 400, 200), (64, 800, 380),
                  (8, 1000, 380)]
+BATCH = 16  # the training forward's and the train phase's batch
+TRAIN_STEPS = 6  # timed train steps after the first
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 outside the
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -412,6 +421,10 @@ def profile_call(fn):
 
     return {"wall_ms_profiled": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms if dev else None,
+            "cuda_launch_kernel_calls": sum(
+                c for k, _, c in host if k.startswith("cudaLaunchKernel")),
+            "mas_device_ms": sum(ms for k, ms, _ in dev
+                                 if re.search(r"\bmas_\w+_kernel", k)),
             "top_device": top(dev), "top_host": top(host)}
 
 
@@ -448,6 +461,28 @@ def phase_serve():
          profile_repeat=profile_call(lambda: sm.synthesize(texts[1])))
 
 
+def training_lengths(config, b, gen):
+    """Token ids [b, T_x] of the b longest lines of FILELIST (blanks
+    interspersed), their lengths, and ragged frame counts in [400, 800]
+    drawn from gen (at least the tokens; item 0 has 800)."""
+    import torch
+
+    from mb_istft_vits_torch.text import frontend_ids
+
+    d = config.data
+    ids = sorted((frontend_ids(text, d.text_module, d.text_cleaners,
+                               d.add_blank, d.cleaned_text)
+                  for text in _texts(500)), key=len)[-b:]
+    x = torch.zeros((b, max(len(i) for i in ids)), dtype=torch.long)
+    for i, seq in enumerate(ids):
+        x[i, :len(seq)] = torch.tensor(seq)
+    x_lengths = torch.tensor([len(s) for s in ids])
+    y_lengths = torch.maximum(torch.randint(400, 801, (b,), generator=gen),
+                              x_lengths)
+    y_lengths[0] = 800
+    return x, x_lengths, y_lengths
+
+
 def phase_forward():
     """Flagship training forward, batch 16: returns the MAS inputs of the
     run for the kernels' main-path timing."""
@@ -457,28 +492,17 @@ def phase_forward():
     from mb_istft_vits_torch.models import Synthesizer
     from mb_istft_vits_torch.models.synthesizer import mas_neg_cent
     from mb_istft_vits_torch.ops import mas
-    from mb_istft_vits_torch.text import frontend_ids
 
     config = Config.from_json(CONFIG)
-    cfg, d = config.model, config.data
+    cfg = config.model
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(1)
         model = Synthesizer(cfg)
     model = model.cuda().eval()  # eval: no dropout, so enc_p re-runs equal
-    b = 16
-    ids = sorted((frontend_ids(text, d.text_module, d.text_cleaners,
-                               d.add_blank, d.cleaned_text)
-                  for text in _texts(500)), key=len)[-b:]
-    t_x = max(len(i) for i in ids)
-    x = torch.zeros((b, t_x), dtype=torch.long)
-    for i, seq in enumerate(ids):
-        x[i, :len(seq)] = torch.tensor(seq)
-    x_lengths = torch.tensor([len(s) for s in ids])
+    b = BATCH
     gen = torch.Generator().manual_seed(2)
-    y_lengths = torch.maximum(torch.randint(400, 801, (b,), generator=gen),
-                              x_lengths)
-    y_lengths[0] = 800
-    t_y = int(y_lengths.max())
+    x, x_lengths, y_lengths = training_lengths(config, b, gen)
+    t_x, t_y = x.shape[1], int(y_lengths.max())
     y = torch.log(torch.randn((b, t_y, cfg.spec_channels),
                               generator=gen) ** 2 + 1e-5)
     eps = torch.randn((b, t_y, cfg.inter_channels), generator=gen)
@@ -531,6 +555,214 @@ def phase_forward():
     return neg_cent, mask
 
 
+def train_batch(config, b, seed):
+    """A collate-shaped batch on the card, as `BucketedBatcher.make_batch`
+    lays it out: the ids of the b longest lines of FILELIST, and seeded
+    int16 waveforms (a harmonic tone in noise) of ragged length, T_y in
+    [400, 800] frames plus a sub-hop tail, in a buffer of
+    800 * hop + (n_fft - hop) samples. The spectrogram is left to the
+    trainer, on the card."""
+    import numpy as np
+    import torch
+
+    d = config.data
+    x, x_lengths, y_lengths = training_lengths(
+        config, b, torch.Generator().manual_seed(seed))
+    rng = np.random.RandomState(seed)
+    t_spec = int(y_lengths.max())
+    t_wav = t_spec * d.hop_length + d.filter_length - d.hop_length
+    samples = np.minimum(y_lengths.numpy() * d.hop_length
+                         + rng.randint(0, d.hop_length, b), t_wav)
+    wav = np.zeros((b, t_wav, 1), np.int16)
+    for i, n in enumerate(samples):
+        t = np.arange(n) / d.sampling_rate
+        f0 = rng.uniform(90, 250)
+        tone = sum(np.sin(2 * np.pi * k * f0 * t + rng.uniform(0, 6)) / k
+                   for k in range(1, 6))
+        wav[i, :n, 0] = np.clip(3000 * tone + 800 * rng.randn(n), -32768,
+                                32767)
+    batch = {"x": x.int(), "x_lengths": x_lengths.int(),
+             "spec_lengths": torch.from_numpy(np.minimum(
+                 samples // d.hop_length, t_spec).astype(np.int32)),
+             "wav": torch.from_numpy(wav),
+             "wav_lengths": torch.from_numpy(samples.astype(np.int32))}
+    return {k: v.cuda() for k, v in batch.items()}
+
+
+def phase_train():
+    """Flagship GAN training, batch 16, through `train.step.train_step`:
+    one first step (cuDNN picks its algorithms for every new shape), then
+    TRAIN_STEPS timed steps on the same batch (host ms around a synced
+    step; the last split by CUDA events into prep + forward, D step and
+    G step, and its MAS input and output recorded), one profiled step and
+    one step with fp16_run (bf16 autocast)."""
+    import dataclasses
+    import math
+    from unittest import mock
+
+    import torch
+
+    from mb_istft_vits_torch.config import Config
+    from mb_istft_vits_torch.models import synthesizer
+    from mb_istft_vits_torch.ops import mas
+    from mb_istft_vits_torch.train import step as tstep
+
+    config = Config.from_json(CONFIG)
+    config = dataclasses.replace(config, train=dataclasses.replace(
+        config.train, batch_size=BATCH))
+    state = tstep.create_train_state(config, torch.device("cuda"), seed=3)
+    batch = train_batch(config, BATCH, seed=4)
+    before = {f"{net}.{k}": v.detach().clone() for net, model in
+              (("g", state.net_g), ("d", state.net_d))
+              for k, v in model.named_parameters()}
+
+    def mas_launches():
+        return mas.launch_counts["mas_fused"] + mas.launch_counts["mas_fwd"]
+
+    def step():
+        n0 = mas_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in
+                   tstep.train_step(state, batch).items()}
+        torch.cuda.synchronize()
+        return {"host_ms": (time.perf_counter() - t0) * 1e3,
+                "mas_launches": mas_launches() - n0, "metrics": metrics}
+
+    torch.cuda.reset_peak_memory_stats()
+    first = step()
+    steps = [step() for _ in range(TRAIN_STEPS - 1)]
+
+    # the last timed step: CUDA events around its halves, MAS recorded
+    marks, mas_io = [], {}
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            marks.append((start, end))
+            return out
+        return run
+
+    def recorded(fn):
+        def run(neg_cent, mask, **kwargs):
+            path = fn(neg_cent, mask, **kwargs)
+            mas_io.update(neg_cent=neg_cent, mask=mask, path=path)
+            return path
+        return run
+
+    begin = torch.cuda.Event(enable_timing=True)
+    with mock.patch.object(tstep, "d_step", timed(tstep.d_step)), \
+            mock.patch.object(tstep, "g_step", timed(tstep.g_step)), \
+            mock.patch.object(synthesizer, "maximum_path",
+                              recorded(synthesizer.maximum_path)):
+        begin.record()
+        steps.append(step())
+    (d0, d1), (g0, g1) = marks
+    split = {"prep_and_forward_ms": begin.elapsed_time(d0),
+             "d_step_ms": d0.elapsed_time(d1),
+             "g_step_ms": g0.elapsed_time(g1)}
+    peak = torch.cuda.max_memory_allocated()
+    plain = mas.maximum_path(mas_io["neg_cent"], mas_io["mask"], impl="plain")
+
+    n0 = mas_launches()
+    profile = profile_call(lambda: (tstep.train_step(state, batch),
+                                    torch.cuda.synchronize()))
+    profiled_mas = mas_launches() - n0
+    bf16 = dataclasses.replace(state, cfg=dataclasses.replace(
+        config, train=dataclasses.replace(config.train, fp16_run=True)))
+    bf16_metrics = {k: float(v) for k, v in
+                    tstep.train_step(bf16, batch).items()}
+
+    params = {f"{net}.{k}": v for net, model in
+              (("g", state.net_g), ("d", state.net_d))
+              for k, v in model.named_parameters()}
+    mel = [s["metrics"]["loss/g/mel"] for s in [first] + steps]
+    checks = {
+        "metrics_finite": all(math.isfinite(v) for s in [first] + steps
+                              for v in s["metrics"].values()),
+        "params_changed": all(not torch.equal(v, before[k])
+                              for k, v in params.items()),
+        "master_params_f32": all(v.dtype == torch.float32
+                                 for v in params.values()),
+        "mel_loss_fell": mel[-1] < mel[0],
+        "mas_once_per_step": all(s["mas_launches"] == 1
+                                 for s in [first] + steps)
+        and profiled_mas == 1,
+        "attn_equals_plain": torch.equal(mas_io["path"], plain),
+        "fp16_run_finite": all(math.isfinite(v)
+                               for v in bf16_metrics.values()),
+    }
+    steady = [s["host_ms"] for s in steps]
+    emit("train", batch=BATCH, t_x_max=int(batch["x"].shape[1]),
+         t_y_max=int(batch["spec_lengths"].max()),
+         segment_size=config.train.segment_size,
+         mas_shape=list(mas_io["neg_cent"].shape),
+         first_step_ms=first["host_ms"], step_ms=steady,
+         step_ms_median=statistics.median(steady), split_last_step=split,
+         peak_memory_bytes=peak, loss_g_mel=mel,
+         steps=[first] + steps, metrics_fp16_run=bf16_metrics,
+         profile=profile, mas_device_share=(
+             profile["mas_device_ms"] / profile["device_ms"]
+             if profile["device_ms"] else None),
+         checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"train checks failed: {failed}")
+
+
+def phase_train_cli():
+    """The training CLI on the card (its main(), in this process, so its
+    MAS launches count): 3 steps at the shrunk width, on the CLI tests'
+    tiny dataset (tests/torch_port_data.py), then a second run that
+    resumes from step 3 to step 5."""
+    import math
+    import tempfile
+
+    from mb_istft_vits_torch.train.__main__ import main as train_main
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_port_data import write_tiny_dataset
+
+    with tempfile.TemporaryDirectory() as root:
+        cfg = write_tiny_dataset(root)
+        cwd = os.getcwd()
+        os.chdir(root)  # the CLI writes to ./logs/NAME
+        try:
+            t0 = time.perf_counter()
+            args = ["-c", cfg, "-m", "smoke"]  # CUDA, the CLI's default
+            rcs = [train_main(args + ["--max-steps", "3"])]
+            t1 = time.perf_counter()
+            rcs.append(train_main(args + ["--max-steps", "5"]))
+            t2 = time.perf_counter()
+        finally:
+            os.chdir(cwd)
+        model_dir = os.path.join(root, "logs", "smoke")
+        with open(os.path.join(model_dir, "train.log")) as f:
+            log = f.read()
+        steps = {int(m.group(1)): json.loads(m.group(2)) for m in
+                 re.finditer(r"step (\d+): (\{.*\})", log)}
+        checks = {
+            "exit_codes_zero": rcs == [0, 0],
+            "steps_1_to_5": sorted(steps) == [1, 2, 3, 4, 5],
+            "metrics_finite": all(math.isfinite(v) for m in steps.values()
+                                  for v in m.values()),
+            "resumed_from_step_3": "resumed from step 3" in log,
+            "checkpoints_written": all(
+                os.path.exists(os.path.join(model_dir, f"{p}_{s}.pth"))
+                for p in "GD" for s in (3, 5)),
+        }
+    emit("train_cli", seconds_first_run=t1 - t0, seconds_resumed_run=t2 - t1,
+         step_seconds={s: m["step_seconds"] for s, m in steps.items()},
+         checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"train_cli checks failed: {failed}")
+
+
 def main() -> int:
     smi = phase_device()
     sys.path.insert(0, REPO)
@@ -543,11 +775,13 @@ def main() -> int:
     phase_build()
     checks = phase_kernels()
 
-    # the main path: serving, then the training forward; the counts show
-    # which kernels it launched
+    # the main path: serving, the training forward, training steps and
+    # the training CLI; the counts show which kernels it launched
     mas.reset_launch_counts()
     phase_serve()
     neg_cent, mask = phase_forward()
+    phase_train()
+    phase_train_cli()
     launches = dict(mas.launch_counts)
     missing = [k for k, v in launches.items() if v == 0]
     if missing:

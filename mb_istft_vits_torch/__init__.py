@@ -5,9 +5,11 @@ public layouts and never imports it (nor JAX). What is ported so far:
 
   - flagship serving: text -> int16 waveform (`infer.synthesis`,
     `python -m mb_istft_vits_torch.synthesize`)
-  - the generator's training forward, `Synthesizer.forward`, whose
-    Monotonic Alignment Search runs in hand-written CUDA kernels
-    (`csrc/mas.cu`, bound in `kernels.py`, dispatched by `ops/mas.py`)
+  - the GAN trainer (`train`, `python -m mb_istft_vits_torch.train`): one
+    generator forward a step, whose Monotonic Alignment Search runs in
+    hand-written CUDA kernels (`csrc/mas.cu`, bound in `kernels.py`,
+    dispatched by `ops/mas.py`), a discriminator step, then a generator
+    step against the updated discriminator
 
 Modules run in torch's [B, C, T] layout inside; the public `Synthesizer`
 methods take and return the JAX package's [B, T, C] layouts. Entry points

@@ -1,8 +1,7 @@
 """Typed configuration: reads the reference JSON configs (`configs/*.json`).
 
-The port's own copy of `HParams`, `load_hparams`, `ModelConfig` and the
-`data` block of the JAX package's `config.py`; the `train` block waits for
-the trainer slice.
+The port's own copy of `HParams`, `load_hparams`, `ModelConfig`,
+`DataConfig`, `TrainConfig` and `Config` of the JAX package's `config.py`.
 """
 
 from __future__ import annotations
@@ -160,9 +159,46 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """`train` block of configs, plus the JAX package's two additions:
+    the generator's gradient value clip and the steps per epoch of the lr
+    schedule (0 = derived from the dataset by the trainer)."""
+
+    log_interval: int = 200
+    eval_interval: int = 100000
+    seed: int = 1234
+    epochs: int = 20000
+    learning_rate: float = 2e-4
+    betas: Sequence[float] = (0.8, 0.99)
+    eps: float = 1e-9
+    batch_size: int = 64
+    fp16_run: bool = False  # bf16 autocast, f32 master weights and losses
+    lr_decay: float = 0.999875
+    segment_size: int = 8192
+    c_mel: float = 45.0
+    c_kl: float = 1.0
+    fft_sizes: Sequence[int] = (384, 683, 171)
+    hop_sizes: Sequence[int] = (30, 60, 10)
+    win_lengths: Sequence[int] = (150, 300, 60)
+    window: str = "hann_window"
+    grad_clip_value: float = 1.0
+    steps_per_epoch: int = 0
+
+    @staticmethod
+    def from_hparams(hps: HParams) -> "TrainConfig":
+        fields = {f.name for f in dataclasses.fields(TrainConfig)}
+        kwargs = {k: v for k, v in hps.train.items() if k in fields}
+        for key in ("betas", "fft_sizes", "hop_sizes", "win_lengths"):
+            if key in kwargs:
+                kwargs[key] = tuple(kwargs[key])
+        return TrainConfig(**kwargs)
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig
     data: DataConfig
+    train: TrainConfig
 
     @staticmethod
     def from_json(config_path: str, n_vocab: Optional[int] = None) -> "Config":
@@ -173,4 +209,4 @@ class Config:
 
             n_vocab = len(get_symbols(data.text_module))
         return Config(model=ModelConfig.from_hparams(hps, n_vocab=n_vocab),
-                      data=data)
+                      data=data, train=TrainConfig.from_hparams(hps))

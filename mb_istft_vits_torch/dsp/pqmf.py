@@ -1,9 +1,12 @@
-"""Pseudo-QMF synthesis filterbank of the MB-iSTFT head (counterpart of
-`mb_istft_vits_tpu/dsp/pqmf.py`; reference `pqmf.py:15-116`).
+"""Pseudo-QMF filterbank of the MB-iSTFT head and the sub-band loss
+(counterpart of `mb_istft_vits_tpu/dsp/pqmf.py`; reference
+`pqmf.py:15-116`).
 
-The filters are designed with numpy once; synthesis is the reference's
-own pipeline: zero-stuff x subbands with gain `subbands`, then the 63-tap
-cosine-modulated synthesis filters as one conv1d.
+The filters are designed with numpy once. Both directions are the
+reference's own pipeline: analysis is the 63-tap cosine-modulated
+analysis filters as one conv1d, then every `subbands`-th sample;
+synthesis zero-stuffs x subbands with gain `subbands`, then runs the
+synthesis filters as one conv1d.
 """
 
 from __future__ import annotations
@@ -49,18 +52,29 @@ def _pqmf_filters(subbands: int, taps: int, cutoff_ratio: float,
 
 
 class PQMF(nn.Module):
-    """PQMF synthesis. The filter is a non-persistent buffer: it moves with
-    the module but is not part of the state dict (the reference rebuilds it
-    in its constructor too)."""
+    """PQMF analysis and synthesis. The filters are non-persistent
+    buffers: they move with the module but are not part of the state dict
+    (the reference rebuilds them in its constructor too)."""
 
     def __init__(self, subbands: int = 4, taps: int = 62,
                  cutoff_ratio: float = 0.15, beta: float = 9.0):
         super().__init__()
         self.subbands, self.taps = subbands, taps
-        _, h_s = _pqmf_filters(subbands, taps, cutoff_ratio, beta)
+        h_a, h_s = _pqmf_filters(subbands, taps, cutoff_ratio, beta)
+        self.register_buffer("analysis_filter",  # [s, 1, taps+1]
+                             torch.from_numpy(h_a.copy())[:, None],
+                             persistent=False)
         self.register_buffer("synthesis_filter",
                              torch.from_numpy(h_s.copy())[None],  # [1, s, taps+1]
                              persistent=False)
+
+    def analysis_bm(self, x: torch.Tensor) -> torch.Tensor:
+        """Waveform [B, 1, T] -> band-major sub-bands [B, S, ceil(T/S)]
+        (reference `pqmf.py:95-103`)."""
+        half = self.taps // 2
+        bands = F.conv1d(F.pad(x, (half, half)),
+                         self.analysis_filter.to(x.dtype))
+        return bands[:, :, ::self.subbands]
 
     def synthesis_bm(self, x: torch.Tensor) -> torch.Tensor:
         """Band-major sub-band waveforms [B, S, T/S] -> [B, 1, T]

@@ -1,7 +1,15 @@
-"""Inverse STFT of the decoder heads (counterpart of the iSTFT half of
-`mb_istft_vits_tpu/dsp/stft.py`; `TorchSTFT.inverse`, reference
-`stft.py:197-202`): `torch.istft` with center=True and a periodic Hann
-window, as the reference computes it.
+"""STFT, magnitude spectrogram and inverse STFT (counterpart of
+`mb_istft_vits_tpu/dsp/stft.py`), on `torch.stft` / `torch.istft`.
+
+  - `stft` / `stft_magnitude`: onesided STFT, periodic Hann window
+    zero-padded to n_fft at the centre; center=True reflect-pads n_fft//2
+    a side, as the MR-STFT loss does (reference `stft_loss.py:12-28`).
+  - `spectrogram`: the training front end (reference
+    `mel_processing.py:51-70`): constant-pad (n_fft - hop)/2 a side with
+    zeros, then center=False. This fork of the reference pads with zeros,
+    not by reflection.
+  - `istft`: the decoder heads' inverse (`TorchSTFT.inverse`, reference
+    `stft.py:197-202`) with center=True.
 
 torch.istft divides by the window's overlap-add envelope and raises where
 the envelope vanishes inside the kept span; the JAX package divides by 1
@@ -12,7 +20,55 @@ span, so the two agree.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+import torch.nn.functional as F
+
+
+def padded_window(win_length: int, n_fft: int,
+                  device: torch.device) -> torch.Tensor:
+    """Periodic Hann window of win_length, zero-padded at the centre of
+    n_fft (JAX `_padded_window`; what torch.stft does to a short window)."""
+    win = torch.hann_window(win_length, periodic=True, dtype=torch.float32,
+                            device=device)
+    left = (n_fft - win_length) // 2
+    return F.pad(win, (left, n_fft - win_length - left))
+
+
+def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
+         center: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Onesided STFT of y [B, T] (or [T]) -> (real, imag), each
+    [B, n_bins, F]; center=True reflect-pads."""
+    if y.dim() == 1:
+        y = y[None]
+    spec = torch.stft(y, n_fft, hop_length, n_fft,
+                      window=padded_window(win_length, n_fft, y.device),
+                      center=center, pad_mode="reflect", return_complex=True)
+    return spec.real, spec.imag
+
+
+def stft_magnitude(y: torch.Tensor, n_fft: int, hop_length: int,
+                   win_length: int, center: bool = True, eps: float = 0.0
+                   ) -> torch.Tensor:
+    """|STFT| [B, n_bins, F]; eps > 0 clamps the power from below, as
+    `stft_loss.py:28` does."""
+    real, imag = stft(y, n_fft, hop_length, win_length, center)
+    power = real * real + imag * imag
+    if eps:
+        power = torch.clamp(power, min=eps)
+    return torch.sqrt(power)
+
+
+def spectrogram(y: torch.Tensor, n_fft: int, hop_length: int,
+                win_length: int) -> torch.Tensor:
+    """Linear magnitude spectrogram of y [B, T] in [-1, 1] -> [B, n_bins, F]
+    with the reference front end's zero padding."""
+    if y.dim() == 1:
+        y = y[None]
+    p = (n_fft - hop_length) // 2
+    return stft_magnitude(F.pad(y, (p, p)), n_fft, hop_length, win_length,
+                          center=False)
 
 
 def istft(magnitude: torch.Tensor, phase: torch.Tensor, n_fft: int,
@@ -21,10 +77,7 @@ def istft(magnitude: torch.Tensor, phase: torch.Tensor, n_fft: int,
     """iSTFT of magnitude * e^{i phase}: [B, n_bins, F] -> [B, T], with
     T = (F - 1) * hop_length for center=True (JAX `istft` / `istft_riq`)."""
     spec = torch.polar(magnitude.float(), phase.float())
-    win = torch.hann_window(win_length, periodic=True, dtype=torch.float32,
-                            device=spec.device)
-    left = (n_fft - win_length) // 2  # centred, as torch.istft pads
-    win = torch.nn.functional.pad(win, (left, n_fft - win_length - left))
-    wav = torch.istft(spec, n_fft, hop_length, win_length, window=win,
+    wav = torch.istft(spec, n_fft, hop_length, n_fft,
+                      window=padded_window(win_length, n_fft, spec.device),
                       center=center)
     return wav.to(magnitude.dtype)

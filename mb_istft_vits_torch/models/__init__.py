@@ -1,4 +1,9 @@
 from mb_istft_vits_torch.models.decoders import MultibandISTFTGenerator  # noqa: F401
+from mb_istft_vits_torch.models.discriminator import (  # noqa: F401
+    DiscriminatorP,
+    DiscriminatorS,
+    MultiPeriodDiscriminator,
+)
 from mb_istft_vits_torch.models.duration import DurationPredictor  # noqa: F401
 from mb_istft_vits_torch.models.encoders import (  # noqa: F401
     PosteriorEncoder,

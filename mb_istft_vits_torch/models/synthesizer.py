@@ -69,17 +69,19 @@ class ResidualCouplingBlock(nn.Module):
 def mas_neg_cent(z_p: torch.Tensor, m_p: torch.Tensor,
                  logs_p: torch.Tensor) -> torch.Tensor:
     """Log-likelihood of every (frame, token) pair under the prior, in
-    float32 (reference models.py:668-676): z_p [B, C, T_y],
-    m_p / logs_p [B, C, T_x] -> [B, T_y, T_x]."""
+    float32 whatever autocast is on (reference models.py:668-676):
+    z_p [B, C, T_y], m_p / logs_p [B, C, T_x] -> [B, T_y, T_x]."""
     zp = z_p.detach().float()
     mp = m_p.detach().float()
     lp = logs_p.detach().float()
-    s_p_sq_r = torch.exp(-2.0 * lp)  # [B, C, T_x]
-    nc1 = torch.sum(-0.5 * math.log(2 * math.pi) - lp, dim=1, keepdim=True)
-    nc2 = torch.matmul(_cl(-0.5 * zp * zp), s_p_sq_r)
-    nc3 = torch.matmul(_cl(zp), mp * s_p_sq_r)
-    nc4 = torch.sum(-0.5 * mp * mp * s_p_sq_r, dim=1, keepdim=True)
-    return nc1 + nc2 + nc3 + nc4
+    with torch.autocast(zp.device.type, enabled=False):
+        s_p_sq_r = torch.exp(-2.0 * lp)  # [B, C, T_x]
+        nc1 = torch.sum(-0.5 * math.log(2 * math.pi) - lp, dim=1,
+                        keepdim=True)
+        nc2 = torch.matmul(_cl(-0.5 * zp * zp), s_p_sq_r)
+        nc3 = torch.matmul(_cl(zp), mp * s_p_sq_r)
+        nc4 = torch.sum(-0.5 * mp * mp * s_p_sq_r, dim=1, keepdim=True)
+        return nc1 + nc2 + nc3 + nc4
 
 
 class InferOutput(NamedTuple):
@@ -189,6 +191,28 @@ class Synthesizer(nn.Module):
         o, o_mb, _, _ = self._decode(z_slice)
         return (o, o_mb, l_length, attn, ids_slice, _cl(x_mask), _cl(y_mask),
                 tuple(_cl(t) for t in (z, z_p, m_p, logs_p, m_q, logs_q)))
+
+    def fake_slice(
+        self,
+        y: torch.Tensor,
+        y_lengths: torch.Tensor,
+        posterior_eps: Optional[torch.Tensor] = None,
+        ids_slice: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """The part of `forward` that makes the discriminator's fake:
+        posterior -> random slice -> decoder. Under the same draws its
+        output is `forward`'s (o, ids_slice). The trainer runs one full
+        forward per step instead, as the reference does; this stays for
+        callers that need only the fake."""
+        z, _, _, _ = self.enc_q(
+            _cl(y), y_lengths,
+            eps=None if posterior_eps is None else _cl(posterior_eps),
+            generator=generator)
+        z_slice, ids_slice = rand_slice_segments(
+            z, y_lengths, self.cfg.segment_size, generator=generator,
+            ids_str=ids_slice)
+        return self._decode(z_slice)[0], ids_slice
 
     # ------------------------------------------------------------------
     # inference (reference models.py:697-737)

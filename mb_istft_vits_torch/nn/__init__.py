@@ -11,6 +11,7 @@ from mb_istft_vits_torch.nn.flows import (  # noqa: F401
 )
 from mb_istft_vits_torch.nn.layers import (  # noqa: F401
     Conv1d,
+    Conv2d,
     ConvTranspose1d,
     LayerNorm,
     get_padding,

@@ -1,14 +1,16 @@
-"""Core layers: 1-D convs with optional weight norm, transposed convs,
-channel LayerNorm (counterpart of `mb_istft_vits_tpu/nn/layers.py`).
+"""Core layers: 1-D and 2-D convs with optional weight norm, transposed
+convs, channel LayerNorm (counterpart of `mb_istft_vits_tpu/nn/layers.py`).
 
-Layout: activations [B, C, T]. Parameter names and shapes are those of the
-reference torch modules, so reference `G_*.pth` state dicts load as they
-are: weight norm is stored as (`weight_g`, `weight_v`).
+Layout: activations [B, C, T] ([B, C, H, W] for the 2-D convs). Parameter
+names and shapes are those of the reference torch modules, so reference
+`G_*.pth` / `D_*.pth` state dicts load as they are: weight norm is stored
+as (`weight_g`, `weight_v`).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 import torch.nn as nn
@@ -100,6 +102,34 @@ class ConvTranspose1d(_WeightNormMixin, nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv_transpose1d(x, self._weight(), self.bias, self.stride,
                                   self.padding)
+
+
+class Conv2d(_WeightNormMixin, nn.Module):
+    """torch.nn.Conv2d with optional weight norm (the period
+    discriminators' convs, JAX `Conv2dP`); default init as torch's. The
+    weight is [out, in, kh, kw], so g runs over the output channels."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Tuple[int, int],
+                 stride: Tuple[int, int] = (1, 1),
+                 padding: Tuple[int, int] = (0, 0), bias: bool = True,
+                 weight_norm: bool = False):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        w = torch.empty(out_channels, in_channels, *kernel_size)
+        nn.init.kaiming_uniform_(w, a=math.sqrt(5))
+        self._init_weight(w, weight_norm)
+        if bias:
+            bound = 1.0 / math.sqrt(in_channels * kernel_size[0]
+                                    * kernel_size[1])
+            self.bias = nn.Parameter(torch.empty(out_channels)
+                                     .uniform_(-bound, bound))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self._weight(), self.bias, self.stride,
+                        self.padding)
 
 
 class LayerNorm(nn.Module):

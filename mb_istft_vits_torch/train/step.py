@@ -1,0 +1,255 @@
+"""The GAN training step (counterpart of `mb_istft_vits_tpu/train/step.py`;
+reference `train_latest.py:152-266`).
+
+One step, in the reference's own order:
+  1. batch prep: int16 wav -> float, linear spectrogram on the device
+  2. one generator forward (posterior sample, MAS alignment, random
+     decode slice), under bf16 autocast when `fp16_run`
+  3. discriminator step on (real slice, detached fake): LSGAN loss,
+     AdamW, no clip
+  4. generator step against the updated discriminator:
+     gen + fm + mel * c_mel + dur + kl * c_kl + sub-band MR-STFT,
+     gradients value-clipped at `grad_clip_value`, AdamW
+  5. lr = lr0 * lr_decay ^ (step // steps_per_epoch), taken at the step
+     count before the increment
+
+The JAX package splits the step into two programs and re-runs the fake's
+subgraph in the first (`Synthesizer.fake_slice`) only to keep each TPU
+program small; one forward shared by both halves gives the same fake and
+the same draws. Master weights, optimizer state and every loss stay
+float32; there is no loss scaling.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Callable, Dict, NamedTuple, Optional
+
+import torch
+
+from mb_istft_vits_torch.config import Config, TrainConfig
+from mb_istft_vits_torch.dsp.mel import mel_spectrogram, spec_to_mel
+from mb_istft_vits_torch.dsp.stft import spectrogram
+from mb_istft_vits_torch.losses import (
+    discriminator_loss,
+    feature_loss,
+    generator_loss,
+    kl_loss,
+    subband_stft_loss,
+)
+from mb_istft_vits_torch.models import MultiPeriodDiscriminator, Synthesizer
+from mb_istft_vits_torch.ops import slice_segments
+
+WEIGHT_DECAY = 0.01  # torch.optim.AdamW's default (train_latest.py:103-112)
+
+
+class StepDraws(NamedTuple):
+    """The random draws of one step, shared by both halves: the posterior
+    noise [B, T_spec, inter_channels] and the decode slice's start frames
+    [B] int32."""
+
+    posterior_eps: torch.Tensor
+    ids_slice: torch.Tensor
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Generator, discriminator, their optimizers and the step count. The
+    draws of step n come from a generator seeded by (seed, n), so a
+    resumed run repeats them."""
+
+    cfg: Config
+    net_g: Synthesizer
+    net_d: MultiPeriodDiscriminator
+    optim_g: torch.optim.AdamW
+    optim_d: torch.optim.AdamW
+    seed: int
+    step: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.net_g.parameters()).device
+
+    def step_generator(self) -> torch.Generator:
+        return torch.Generator(self.device).manual_seed(
+            self.seed * 1_000_003 + self.step)
+
+
+def make_lr_schedule(train_cfg: TrainConfig) -> Callable[[int], float]:
+    """lr0 * lr_decay ^ epoch, stepped per epoch like the reference's
+    ExponentialLR (train_latest.py:124-125,134-135)."""
+    spe = max(train_cfg.steps_per_epoch, 1)
+
+    def schedule(step: int) -> float:
+        return train_cfg.learning_rate * train_cfg.lr_decay ** (step // spe)
+
+    return schedule
+
+
+def make_optimizer(params, train_cfg: TrainConfig) -> torch.optim.AdamW:
+    """AdamW with the config's betas and eps and weight decay 0.01. Its
+    update, -lr * (m_hat / (sqrt(v_hat) + eps) + 0.01 * p), is the JAX
+    package's `leaf_adamw`; the trainer sets its lr from the schedule
+    before every step."""
+    return torch.optim.AdamW(params, lr=train_cfg.learning_rate,
+                             betas=tuple(train_cfg.betas), eps=train_cfg.eps,
+                             weight_decay=WEIGHT_DECAY)
+
+
+def create_train_state(cfg: Config, device: torch.device,
+                       seed: int) -> TrainState:
+    """Generator and discriminator with torch's default init, drawn from
+    `seed`, on `device`; fresh optimizers."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        net_g = Synthesizer(cfg.model)
+        net_d = MultiPeriodDiscriminator()
+    net_g, net_d = net_g.to(device).train(), net_d.to(device).train()
+    return TrainState(cfg, net_g, net_d,
+                      make_optimizer(net_g.parameters(), cfg.train),
+                      make_optimizer(net_d.parameters(), cfg.train), seed)
+
+
+def prep_batch(batch: Dict[str, torch.Tensor], cfg: Config
+               ) -> Dict[str, torch.Tensor]:
+    """int16 wav [B, T_wav, 1] -> float32 / max_wav_value; unless the batch
+    carries "spec", the linear spectrogram [B, T_spec, bins] is computed
+    here, on the batch's device. The collate sized the wav buffer
+    t_spec * hop + (n_fft - hop), so the frames past t_spec are cut."""
+    d = cfg.data
+    wav = batch["wav"]
+    if not wav.is_floating_point():
+        wav = wav.float() * (1.0 / d.max_wav_value)
+    out = dict(batch, wav=wav)
+    if "spec" not in batch:
+        t_spec = (wav.shape[1] - (d.filter_length - d.hop_length)
+                  ) // d.hop_length
+        mag = spectrogram(wav[..., 0], d.filter_length, d.hop_length,
+                          d.win_length)
+        out["spec"] = mag.transpose(1, 2)[:, :t_spec]
+    return out
+
+
+def _autocast(state: TrainState):
+    """bf16 autocast around the G and D compute when `fp16_run`."""
+    if not state.cfg.train.fp16_run:
+        return contextlib.nullcontext()
+    return torch.autocast(state.device.type, dtype=torch.bfloat16)
+
+
+def _global_norm(params) -> torch.Tensor:
+    grads = [p.grad for p in params if p.grad is not None]
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
+def optimizer_step(optim: torch.optim.AdamW, params, lr: float,
+                   clip_value: Optional[float] = None) -> None:
+    """Value-clip the gradients of `params` (when `clip_value` is given,
+    reference commons.py:146-161), then one AdamW step at `lr`."""
+    if clip_value is not None:
+        torch.nn.utils.clip_grad_value_(params, clip_value)
+    for group in optim.param_groups:
+        group["lr"] = lr
+    optim.step()
+
+
+def g_forward(state: TrainState, batch: Dict[str, torch.Tensor],
+              draws: Optional[StepDraws] = None):
+    """The step's one generator forward (`Synthesizer.forward`'s tuple);
+    without `draws`, they come from the step's generator."""
+    eps, ids_slice = (None, None) if draws is None else draws
+    with _autocast(state):
+        return state.net_g(batch["x"], batch["x_lengths"], batch["spec"],
+                           batch["spec_lengths"], posterior_eps=eps,
+                           ids_slice=ids_slice,
+                           generator=state.step_generator())
+
+
+def real_slice(state: TrainState, batch, ids_slice) -> torch.Tensor:
+    """Ground-truth waveform slice [B, 1, segment_size] at the decode
+    slice's frames (train_latest.py:186)."""
+    return slice_segments(batch["wav"].transpose(1, 2),
+                          ids_slice * state.cfg.data.hop_length,
+                          state.cfg.train.segment_size)
+
+
+def d_step(state: TrainState, y: torch.Tensor, y_hat: torch.Tensor
+           ) -> Dict[str, torch.Tensor]:
+    """Discriminator step on (real y, fake y_hat [B, 1, T], detached
+    here): LSGAN loss, AdamW at the schedule's lr, no clip."""
+    with _autocast(state):
+        y_d_r, y_d_g, _, _ = state.net_d(y, y_hat.detach())
+    loss_disc, _, _ = discriminator_loss(y_d_r, y_d_g)
+    state.optim_d.zero_grad()
+    loss_disc.backward()
+    params = list(state.net_d.parameters())
+    grad_norm_d = _global_norm(params)
+    optimizer_step(state.optim_d, params,
+                   make_lr_schedule(state.cfg.train)(state.step))
+    return {"loss/d/total": loss_disc.detach(), "grad_norm_d": grad_norm_d}
+
+
+def g_step(state: TrainState, batch, out, y: torch.Tensor
+           ) -> Dict[str, torch.Tensor]:
+    """Generator step against the (already updated) discriminator: the
+    losses of `out` (the step's forward), value clip, AdamW."""
+    d, t = state.cfg.data, state.cfg.train
+    (y_hat, y_hat_mb, l_length, _, ids_slice, _, y_mask,
+     (_, z_p, m_p, logs_p, _, logs_q)) = out
+    seg_frames = t.segment_size // d.hop_length
+    with torch.no_grad():
+        spec = slice_segments(batch["spec"].transpose(1, 2).float(),
+                              ids_slice, seg_frames)
+        y_mel = spec_to_mel(spec, d.filter_length, d.n_mel_channels,
+                            d.sampling_rate, d.mel_fmin, d.mel_fmax)
+        y_mb = state.net_g.dec.pqmf.analysis_bm(y.float())
+    y_hat_mel = mel_spectrogram(y_hat[..., 0].float(), d.filter_length,
+                                d.n_mel_channels, d.sampling_rate,
+                                d.hop_length, d.win_length, d.mel_fmin,
+                                d.mel_fmax)
+    # gradients reach the generator through D; D's own are not needed
+    state.net_d.requires_grad_(False)
+    try:
+        with _autocast(state):
+            _, y_d_g, fmap_r, fmap_g = state.net_d(y, y_hat.transpose(1, 2))
+    finally:
+        state.net_d.requires_grad_(True)
+    losses = {
+        "loss/g/gen": generator_loss(y_d_g)[0],
+        "loss/g/fm": feature_loss(fmap_r, fmap_g),
+        "loss/g/mel": torch.mean(torch.abs(y_mel - y_hat_mel)) * t.c_mel,
+        "loss/g/dur": torch.sum(l_length.float()),
+        "loss/g/kl": kl_loss(z_p, logs_q, m_p, logs_p, y_mask) * t.c_kl,
+        "loss/g/subband": subband_stft_loss(
+            y_mb, y_hat_mb, t.fft_sizes, t.hop_sizes, t.win_lengths),
+    }
+    total = sum(losses.values())
+    state.optim_g.zero_grad()
+    total.backward()
+    params = list(state.net_g.parameters())
+    grad_norm_g = _global_norm(params)
+    optimizer_step(state.optim_g, params, make_lr_schedule(t)(state.step),
+                   t.grad_clip_value)
+    metrics = {"loss/g/total": total.detach()}
+    metrics.update({k: v.detach() for k, v in losses.items()})
+    metrics["grad_norm_g"] = grad_norm_g
+    return metrics
+
+
+def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+               draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
+    """One D step then one G step against the updated D; advances
+    `state.step`. `batch` holds the collate's tensors on the model's
+    device ("x", "x_lengths", "wav" int16 or float [B, T_wav, 1],
+    "spec_lengths", optionally "spec"). Returns the JAX package's metrics
+    as 0-d tensors (reading them waits for the device)."""
+    batch = prep_batch(batch, state.cfg)
+    out = g_forward(state, batch, draws)
+    y = real_slice(state, batch, out[4])
+    metrics = d_step(state, y, out[0].transpose(1, 2))
+    metrics.update(g_step(state, batch, out, y))
+    metrics["learning_rate"] = torch.tensor(
+        make_lr_schedule(state.cfg.train)(state.step))
+    state.step += 1
+    return metrics

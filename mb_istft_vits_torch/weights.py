@@ -1,10 +1,12 @@
 """Weight bridge: JAX parameter trees and reference `G_*.pth` files to the
-port's state dict.
+port's state dicts.
 
-The port's modules carry the reference `SynthesizerTrn` state-dict names,
-so a reference checkpoint loads as it is. `state_dict_from_jax` is the
-port's own copy of the JAX package's `export_torch_generator` mapping
-(`train/checkpoint.py:438-593`), restricted to the modules ported so far.
+The port's modules carry the reference `SynthesizerTrn` and
+`MultiPeriodDiscriminator` state-dict names, so a reference checkpoint
+loads as it is. `state_dict_from_jax` is the port's own copy of the JAX
+package's `export_torch_generator` mapping (`train/checkpoint.py:438-593`),
+restricted to the modules ported so far; `discriminator_state_dict_from_jax`
+is the inverse of its `import_torch_discriminator` (`:603-637`).
 """
 
 from __future__ import annotations
@@ -111,6 +113,35 @@ def state_dict_from_jax(params: Mapping, cfg: ModelConfig
             for j in range(n_dil):
                 wn_conv(base + (f"{name}_{j}",), f"dec.resblocks.{i}.{name}.{j}")
     wn_conv(("dec", "subband_conv_post"), "dec.subband_conv_post")
+    return sd
+
+
+def discriminator_state_dict_from_jax(params: Mapping
+                                      ) -> Dict[str, torch.Tensor]:
+    """JAX `MultiPeriodDiscriminator` params -> the port's state dict.
+
+    Layouts: a JAX Conv1d kernel is [k, in, out] and a Conv2dP kernel
+    [kh, kw, in, out]; torch's are [out, in, k] and [out, in, kh, kw].
+    Weight norm's g is a vector in JAX and [out, 1, ...] in torch."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def wn_conv(node, dst):
+        v = np.asarray(node["v"], dtype=np.float32)
+        perm = (2, 1, 0) if v.ndim == 3 else (3, 2, 0, 1)
+        sd[dst + ".weight_v"] = torch.from_numpy(
+            np.ascontiguousarray(v.transpose(perm)))
+        sd[dst + ".weight_g"] = torch.from_numpy(np.asarray(
+            node["g"], dtype=np.float32).reshape((-1,) + (1,) * (v.ndim - 1)))
+        sd[dst + ".bias"] = torch.from_numpy(np.asarray(node["bias"],
+                                                        dtype=np.float32))
+
+    for i, name in enumerate(["disc_s"] + [f"disc_p{p}" for p in
+                                           (2, 3, 5, 7, 11)]):
+        tree = params[name]
+        n_convs = sum(1 for k in tree if k.startswith("convs_"))
+        for j in range(n_convs):
+            wn_conv(tree[f"convs_{j}"], f"discriminators.{i}.convs.{j}")
+        wn_conv(tree["conv_post"], f"discriminators.{i}.conv_post")
     return sd
 
 
