@@ -18,8 +18,6 @@ Phases, one JSON line each:
            device time (`kernel_ms`, a burst of calls queued behind a
            sleep); then mas_fwd's time per row against chunks per lane,
            and mas_bwd's time against rows and path cells
-  serve    flagship config, seeded random weights: several requests of
-           cleaned IPA text -> int16 PCM
   forward  flagship generator training forward on a batch of 16, once on
            the fused MAS kernel and once on the two-pass pair
   train    flagship GAN training steps (D step, then G step against the
@@ -29,8 +27,20 @@ Phases, one JSON line each:
            falling mel loss, one MAS launch per step, the step's alignment
            against the plain MAS
   train_cli the training CLI at a shrunk width: 3 steps, then resumed to 5
-Then one {"kernels": [...]} line (launch counts from the serve, forward,
-train and train_cli run, times, bounds; `launches` counts the first
+  serve    flagship config, seeded random weights: warmup() of the default
+           (text, frame) bucket pairs; 8 requests of filelist lines whose
+           token counts warmup did not run (per request tokens, buckets,
+           total, rtf, dispatch, sync), the same again, a profiled new
+           text; the long-text split; synthesize_batch of 16 lines, also
+           resampled to 16 kHz on the card; one latent through
+           stream_from_latents (time to the first chunk),
+           decode_chunks_batched and decode_spec_join (each correlated
+           > 0.98 with the whole decode); the micro-batcher with 8
+           concurrent callers (rows bit-equal to synthesize_batch); the
+           streaming engine for one utterance, twice; it runs last,
+           as the serving module pins cuDNN's deterministic algorithms
+Then one {"kernels": [...]} line (launch counts from the forward, train,
+train_cli and serve run, times, bounds; `launches` counts the first
 kernel of a port and `launches_by_kernel` each of its kernels: mas_bwd is
 mas_bwd_kernel and mas_path_kernel), the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}.
@@ -79,6 +89,8 @@ BWD_SCAN = [(16, 400, 365), (16, 800, 365), (16, 1600, 365), (16, 800, 128),
 KERNEL_SHAPES = [(64, 400, 200), (32, 400, 200), (64, 800, 380),
                  (8, 1000, 380)]
 BATCH = 16  # the training forward's and the train phase's batch
+SERVE_REQUESTS = 8  # new-text requests after warmup, micro-batch callers
+SERVE_BATCH = 16  # lines in the serve phase's synthesize_batch
 TRAIN_STEPS = 6  # timed train steps after the first
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 outside the
 # tensor cores
@@ -429,36 +441,208 @@ def profile_call(fn):
 
 
 def phase_serve():
+    """The serving slice at flagship width, seeded random weights: warmup,
+    new-text requests, the long-text route, batches, the chunked decodes
+    of one latent, the micro-batcher and the streaming engine."""
+    import threading
+
     import numpy as np
 
-    from mb_istft_vits_torch.infer.synthesis import SynthesisModule
+    from mb_istft_vits_torch.infer.synthesis import (
+        SynthesisModule,
+        _next_bucket,
+    )
+    from mb_istft_vits_torch.serve import (
+        IncrementalTTS,
+        MicroBatcher,
+        TTSRequest,
+    )
 
     sm = SynthesisModule(CONFIG, seed=0, device="cuda")
-    texts = _texts(6)
-    cold_pcm, cold = sm.synthesize(texts[0], seed=0)  # cuDNN/cuBLAS set-up
-    requests = []
-    for i, text in enumerate(texts[:5]):
-        pcm, tm = sm.synthesize(text, seed=i)
-        frames = int(tm["frames"])
-        if pcm.dtype != np.int16 or pcm.shape != (frames * sm.hop_length,):
-            raise AssertionError(f"request {i}: {pcm.dtype} {pcm.shape}, "
-                                 f"{frames} frames")
-        rms = float(np.sqrt(np.mean(pcm.astype(np.float64) ** 2)))
-        if not rms > 0:
-            raise AssertionError(f"request {i}: silent output")
-        requests.append({"tokens": int(sm.text_to_ids(text).size),
-                         "frames": frames, "samples": int(pcm.size),
-                         "rms": rms, "audio_seconds": tm["audio_seconds"],
-                         "total": tm["total"], "rtf": tm["rtf"]})
-    # the same text again: every op sees shapes it has seen before
-    _, again = sm.synthesize(texts[1], seed=1)
+    hop, sr = sm.hop_length, sm.sampling_rate
+    checks = {}
+
+    def check(name, ok):
+        checks[name] = checks.get(name, True) and bool(ok)
+
+    def wav_ok(audio, n=None):
+        return (audio.dtype == np.float32 and audio.size > 0
+                and bool(np.isfinite(audio).all())
+                and (n is None or audio.size == n))
+
+    warm_pairs = [(tb, _next_bucket(int(tb * sm._frames_per_token),
+                                    sm.FRAME_BUCKETS))
+                  for tb in sm.TEXT_BUCKETS]
+    warm_frames = {fb for _, fb in warm_pairs}
+    t0 = time.perf_counter()
+    sm.warmup()
+    warmup_s = time.perf_counter() - t0
+
+    # new texts: token counts warmup did not run, each count once
+    texts = _texts(80)
+    fresh, seen = [], set(sm.TEXT_BUCKETS)
+    for text in texts:
+        k = len(sm.text_to_ids(text))
+        if k not in seen and k <= sm.MAX_TEXT_TOKENS:
+            fresh.append(text)
+            seen.add(k)
+    requests, repeats = [], []
+    for i, text in enumerate(fresh[:SERVE_REQUESTS]):
+        audio, tm = sm.synthesize(text, seed=i)
+        pcm = audio * 32767.0
+        check("requests_on_int16_grid", wav_ok(audio)
+              and audio.size % hop == 0
+              and np.array_equal(pcm, np.round(pcm)))
+        tokens = len(sm.text_to_ids(text))
+        tb = _next_bucket(tokens, sm.TEXT_BUCKETS)
+        requests.append({
+            "tokens": tokens, "text_bucket": tb,
+            "frame_bucket": tm["frame_bucket"],
+            # the encoder's shapes follow the text bucket (all warmed),
+            # the decoder's the frame bucket
+            "frame_bucket_warmed": tm["frame_bucket"] in warm_frames,
+            "audio_seconds": tm["audio_seconds"], "total": tm["total"],
+            "rtf": tm["rtf"], "frontend": tm["frontend"],
+            "dispatch": tm["dispatch"], "sync": tm["sync"]})
+    for i, text in enumerate(fresh[:SERVE_REQUESTS]):
+        _, tm = sm.synthesize(text, seed=i)  # every shape seen before
+        repeats.append({"frame_bucket": tm["frame_bucket"],
+                        "total": tm["total"], "rtf": tm["rtf"]})
+    profile_new = profile_call(
+        lambda: sm.synthesize(fresh[SERVE_REQUESTS], seed=0))
+
+    # the long-text route: filelist lines joined past MAX_TEXT_TOKENS
+    long_text = texts[0]
+    for text in texts[1:]:
+        if len(sm.text_to_ids(long_text)) > sm.MAX_TEXT_TOKENS:
+            break
+        long_text += " " + text
+    audio, tm = sm.synthesize(long_text, seed=0)
+    check("long_text_split", tm["pieces"] > 1 and wav_ok(audio)
+          and audio.size % hop == 0)
+    long_route = {"tokens": len(sm.text_to_ids(long_text)),
+                  "pieces": tm["pieces"], "frame_bucket": tm["frame_bucket"],
+                  "audio_seconds": tm["audio_seconds"], "total": tm["total"],
+                  "rtf": tm["rtf"]}
+
+    # batches of 16 lines, at the model's rate and resampled to 16 kHz
+    batch_texts = texts[:SERVE_BATCH]
+    batches = {}
+    for name, out_sr in (("first", None), ("repeat", None),
+                         ("sr16000", 16000), ("sr16000_repeat", 16000)):
+        audios, tm = sm.synthesize_batch(batch_texts, seed=0,
+                                         out_sample_rate=out_sr)
+        batches[name] = dict(tm, rows=len(audios))
+        if out_sr is None:
+            base = audios
+            check("batch_rows", len(audios) == SERVE_BATCH and all(
+                wav_ok(a) and a.size % hop == 0 for a in audios))
+        else:
+            check("batch_16k_lengths", all(
+                wav_ok(a, -(-b.size * out_sr // sr))
+                for a, b in zip(audios, base)))
+
+    # one latent through every chunked decode, held to the whole decode
+    z, y_len, _ = sm.prepare_shared_latents(fresh[0], seed=0)
+    full = sm.infer_z_only(z)
+    chunked = {}
+    for rep in range(2):
+        t0 = time.perf_counter()
+        stream = sm.stream_from_latents(z)
+        first = next(stream)
+        ttfa = time.perf_counter() - t0
+        joined = np.concatenate([first] + list(stream))
+        chunked[f"stream_{rep}"] = (joined, {
+            "first_chunk_s": ttfa, "total": time.perf_counter() - t0})
+        for name, fn in (
+                ("decode_chunks_batched", sm.decode_chunks_batched),
+                ("decode_spec_join",
+                 lambda z: sm.decode_spec_join(z)),
+                ("decode_spec_join_batched",
+                 lambda z: sm.decode_spec_join(z, batched=True))):
+            t0 = time.perf_counter()
+            out = fn(z)
+            chunked[f"{name}_{rep}"] = (out, {
+                "total": time.perf_counter() - t0})
+    latent = {"frames": int(y_len), "full_samples": int(full.size)}
+    for name, (out, tm) in chunked.items():
+        corr = float(np.corrcoef(full, out)[0, 1]) if out.size == full.size \
+            else None
+        latent[name] = dict(tm, corr_with_full=corr)
+        check("chunked_decodes", wav_ok(out, y_len * hop)
+              and corr is not None and corr > 0.98)
+
+    # the micro-batcher: concurrent callers coalesce into batches
+    mb_texts = fresh[:SERVE_REQUESTS]
+    results, gate = {}, threading.Barrier(len(mb_texts))
+
+    def call(i):
+        gate.wait()
+        results[i] = mb.synthesize(mb_texts[i], seed=7)
+
+    with MicroBatcher(sm, max_batch=SERVE_REQUESTS, max_wait_ms=50.0) as mb:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(mb_texts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        mb_s = time.perf_counter() - t0
+    check("microbatch_all_answered", len(results) == len(mb_texts))
+    sizes = sorted(t["batched"] for _, t in results.values())
+    check("microbatch_coalesced", max(sizes) >= 2)
+    group = max((t for _, t in results.values()), key=lambda t: t["batched"])
+    ref, _ = sm.synthesize_batch(group["batch_order"], seed=7)
+    check("microbatch_rows_equal_batch", all(
+        np.array_equal(results[i][0],
+                       ref[group["batch_order"].index(mb_texts[i])])
+        for i in results if mb_texts[i] in group["batch_order"]
+        and results[i][1]["batched"] == group["batched"]))
+
+    # the streaming engine, no send pacing: one utterance, then the same
+    # text again (its shapes seen)
+    text = fresh[1]
+    _, y_len, _ = sm.prepare_shared_latents(text, noise_scale=0.0)
+    arrivals = {"first": [], "again": []}
+    engine = IncrementalTTS(sm, on_chunk=lambda uid, p: arrivals[uid].append(
+        (time.perf_counter(), len(p) // 2)), send_interval_ms=0,
+        base64_encode=False)
+    engine.start()
+    incremental = {}
+    for uid, got in arrivals.items():
+        t0 = time.perf_counter()
+        engine.submit(TTSRequest(text=text, utterance_id=uid,
+                                 noise_scale=0.0))
+        while (sum(n for _, n in got) < y_len * hop
+               and time.perf_counter() < t0 + 60):
+            time.sleep(0.001)
+        check("incremental_tts_complete",
+              sum(n for _, n in got) == y_len * hop)
+        incremental[uid] = {
+            "chunks": len(got), "samples": sum(n for _, n in got),
+            "first_chunk_s": got[0][0] - t0 if got else None,
+            "last_chunk_s": got[-1][0] - t0 if got else None}
+    engine.stop()
+
     emit("serve", config=os.path.relpath(CONFIG, REPO), weights="random",
-         cold_request={"total": cold["total"], "rtf": cold["rtf"]},
+         warmup_seconds=warmup_s, warmup_pairs=warm_pairs,
          requests=requests,
-         median_rtf=statistics.median(r["rtf"] for r in requests),
-         repeat_request={"total": again["total"], "rtf": again["rtf"]},
-         profile_new_shapes=profile_call(lambda: sm.synthesize(texts[5])),
-         profile_repeat=profile_call(lambda: sm.synthesize(texts[1])))
+         median_rtf_new_text=statistics.median(r["rtf"] for r in requests),
+         repeat_requests=repeats,
+         median_rtf_repeat=statistics.median(r["rtf"] for r in repeats),
+         # the single-request path before buckets and warmup (exact
+         # length, a duration probe each call), as this script measured it
+         # on an H100 80GB HBM3 at 700 W: the numbers to compare against
+         unbucketed_median_rtf={"new_shapes": 0.0225, "repeat": 0.0076},
+         profile_new_text=profile_new, long_text=long_route,
+         batch=batches, latent=latent,
+         microbatch={"callers": len(mb_texts), "batched": sizes,
+                     "seconds": mb_s},
+         incremental=incremental, checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"serve checks failed: {failed}")
 
 
 def training_lengths(config, b, gen):
@@ -778,10 +962,12 @@ def main() -> int:
     # the main path: serving, the training forward, training steps and
     # the training CLI; the counts show which kernels it launched
     mas.reset_launch_counts()
-    phase_serve()
     neg_cent, mask = phase_forward()
     phase_train()
     phase_train_cli()
+    # last: the serving module pins cuDNN's deterministic algorithms for
+    # the rest of the process
+    phase_serve()
     launches = dict(mas.launch_counts)
     missing = [k for k, v in launches.items() if v == 0]
     if missing:

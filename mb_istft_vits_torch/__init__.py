@@ -3,8 +3,13 @@
 A port of `mb_istft_vits_tpu` that keeps that package's behaviour and
 public layouts and never imports it (nor JAX). What is ported so far:
 
-  - flagship serving: text -> int16 waveform (`infer.synthesis`,
-    `python -m mb_istft_vits_torch.synthesize`)
+  - flagship serving (`infer.synthesis.SynthesisModule`): text -> waveform
+    at static text / frame buckets, the long-text split, batched
+    synthesis with resampling on the device, streaming, batched and
+    spectrogram-joined chunked decodes; the micro-batcher and the
+    streaming engine (`serve`); the CLIs `python -m
+    mb_istft_vits_torch.synthesize`, `.synthesize_z` and
+    `.batch_synthesize`
   - the GAN trainer (`train`, `python -m mb_istft_vits_torch.train`): one
     generator forward a step, whose Monotonic Alignment Search runs in
     hand-written CUDA kernels (`csrc/mas.cu`, bound in `kernels.py`,

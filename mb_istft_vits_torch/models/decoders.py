@@ -114,3 +114,10 @@ class MultibandISTFTGenerator(_UpsamplerTrunk):
                                   self.n_fft)
         y_mb = self.bands_from_spec(spec, phase)
         return self.pqmf.synthesis_bm(y_mb), y_mb, spec, phase
+
+    def spec_tail(self, spec: torch.Tensor,
+                  phase: torch.Tensor) -> torch.Tensor:
+        """The back half of `forward`: (spec, phase) [B, s, bins, F] ->
+        full-band waveform [B, 1, T_wav] (the serving spectrogram-domain
+        join)."""
+        return self.pqmf.synthesis_bm(self.bands_from_spec(spec, phase))

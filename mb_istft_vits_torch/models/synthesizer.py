@@ -286,9 +286,20 @@ class Synthesizer(nn.Module):
         return (attn, _cl(y_mask), y_lengths,
                 tuple(_cl(t) for t in (z, z_p, m_p, logs_p)))
 
-    def decode(self, z: torch.Tensor, y_mask: Optional[torch.Tensor] = None):
+    def decode(self, z: torch.Tensor, sid: Optional[torch.Tensor] = None,
+               y_mask: Optional[torch.Tensor] = None):
         """Decoder only: z [B, T, C] (y_mask [B, T, 1]) ->
-        (o [B, T_wav, 1], o_mb, spec, phase)."""
+        (o [B, T_wav, 1], o_mb, spec, phase). `sid` is the JAX surface's
+        speaker id; the ported model has one speaker, so it changes
+        nothing."""
         if y_mask is not None:
             z = z * y_mask
         return self._decode(_cl(z))
+
+    def decode_spec_tail(self, spec: torch.Tensor,
+                         phase: torch.Tensor) -> torch.Tensor:
+        """The decoder head's back half, (spec, phase) [B, F, s, bins] ->
+        waveform [B, T_wav, 1]: the same code and filters as the forward
+        pass, for the serving spectrogram-domain join."""
+        return _cl(self.dec.spec_tail(spec.permute(0, 2, 3, 1),
+                                      phase.permute(0, 2, 3, 1)))

@@ -51,7 +51,10 @@ print(json.dumps({"modules": names, "bad": bad}))
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
     assert "mb_istft_vits_torch.models.synthesizer" in out["modules"]
-    assert "mb_istft_vits_torch.synthesize" in out["modules"]
+    for name in ("synthesize", "synthesize_z", "batch_synthesize",
+                 "serve.microbatch", "serve.streaming", "dsp.resample",
+                 "utils.audio", "infer.synthesis"):
+        assert f"mb_istft_vits_torch.{name}" in out["modules"]
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
@@ -74,17 +77,22 @@ def tiny_config(tmp_path_factory):
 
 
 def test_synthesis_module_serves_int16_on_cpu(tiny_config):
+    """float32 audio on the int16 grid (the PCM is quantized on the
+    device, as in the JAX package), a multiple of the hop long."""
     from mb_istft_vits_torch.infer.synthesis import SynthesisModule
 
     sm = SynthesisModule(tiny_config, seed=3, device="cpu")
     text = "ðə kwˈɪk bɹˈaʊn fˈɑːks."
-    pcm, timings = sm.synthesize(text, seed=1)
-    assert pcm.dtype == np.int16
-    assert pcm.size == int(timings["frames"]) * 256 > 0
-    assert np.abs(pcm).max() > 0
-    assert timings["audio_seconds"] == pytest.approx(pcm.size / 22050)
+    audio, timings = sm.synthesize(text, seed=1)
+    assert audio.dtype == np.float32
+    pcm = audio * 32767.0
+    np.testing.assert_array_equal(pcm, np.round(pcm))
+    assert audio.size % 256 == 0 and audio.size > 0
+    assert timings["frame_bucket"] * 256 > audio.size
+    assert np.abs(audio).max() > 0
+    assert timings["audio_seconds"] == pytest.approx(audio.size / 22050)
     again, _ = sm.synthesize(text, seed=1)
-    np.testing.assert_array_equal(pcm, again)  # explicit generator: repeatable
+    np.testing.assert_array_equal(audio, again)  # reseeded: repeatable
 
 
 def test_synthesize_cli_writes_a_wav(tiny_config, tmp_path):
@@ -98,4 +106,5 @@ def test_synthesize_cli_writes_a_wav(tiny_config, tmp_path):
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     with wave.open(str(out)) as w:
         assert w.getsampwidth() == 2 and w.getframerate() == 22050
-        assert w.getnframes() == int(report["frames"]) * 256
+        assert w.getnframes() == report["samples"] > 0
+        assert report["samples"] % 256 == 0

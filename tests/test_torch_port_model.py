@@ -191,7 +191,7 @@ def test_decode_matches_jax(weights):
     r_o = japply(JaxSynthesizer(cfg_j), params, z, None, y_mask,
                  method=JaxSynthesizer.decode)[0]
     with torch.no_grad():
-        o = model.decode(t(z), t(y_mask))[0]
+        o = model.decode(t(z), None, t(y_mask))[0]
     assert rel_l2(n(o), r_o) <= WAV_REL_L2
 
 

@@ -1,7 +1,8 @@
-"""A tiny English training set for the port's trainer CLI: seeded int16
-wavs, rows of the cleaned LJSpeech test filelist and the flagship config
-with its model block shrunk as in test_torch_port_entry.py. Imports no JAX,
-so the CLI tests and chip_smoke.py's `train_cli` phase both use it.
+"""Tiny inputs for the port's JAX-free tests: the flagship config with its
+model block shrunk (the serving tests), and a tiny English training set
+for the trainer CLI (seeded int16 wavs, rows of the cleaned LJSpeech test
+filelist). Imports no JAX, so the CLI and card tests and chip_smoke.py's
+`train_cli` phase use it.
 """
 
 from __future__ import annotations
@@ -20,6 +21,22 @@ TINY_MODEL = dict(inter_channels=16, hidden_channels=16, filter_channels=32,
                   n_layers=1, upsample_initial_channel=32,
                   resblock_kernel_sizes=[3],
                   resblock_dilation_sizes=[[1, 3, 5]])
+
+
+def _tiny_flagship() -> dict:
+    with open(CONFIG) as f:
+        cfg = json.load(f)
+    cfg["model"].update(TINY_MODEL)
+    return cfg
+
+
+def write_tiny_config(root) -> str:
+    """The flagship config with the model block shrunk to TINY_MODEL, as
+    root/tiny.json. Returns its path."""
+    path = os.path.join(root, "tiny.json")
+    with open(path, "w") as f:
+        json.dump(_tiny_flagship(), f)
+    return path
 
 
 def write_tiny_dataset(root, seed=5, n=6, **train):
@@ -42,9 +59,7 @@ def write_tiny_dataset(root, seed=5, n=6, **train):
         rows.append(f"{path}|{text}")
     with open(os.path.join(root, "train.txt"), "w", encoding="utf-8") as f:
         f.write("\n".join(rows) + "\n")
-    with open(CONFIG) as f:
-        cfg = json.load(f)
-    cfg["model"].update(TINY_MODEL)
+    cfg = _tiny_flagship()
     cfg["data"]["training_files"] = os.path.join(root, "train.txt")
     cfg["train"].update(batch_size=2, segment_size=2048, **train)
     path = os.path.join(root, "config.json")
