@@ -26,6 +26,12 @@ Phases, one JSON line each:
            step, a bf16 step; checks finite metrics, moved f32 weights, a
            falling mel loss, one MAS launch per step, the step's alignment
            against the plain MAS
+  train_ms the Japanese 12-speaker multi-stream model
+           (uudb_ms_istft_vits_ms.json) at full width, batch 16 of the 16
+           longest UUDB rows (6 speakers), seeded 16 kHz audio: a first
+           step, 4 timed steps, a profiled one; checks as `train`, plus
+           loss/g/subband == 0 and emb_g's gradient on exactly the batch's
+           speakers' rows; its step time over the flagship's
   train_cli the training CLI at a shrunk width: 3 steps, then resumed to 5
   serve    flagship config, seeded random weights: warmup() of the default
            (text, frame) bucket pairs; 8 requests of filelist lines whose
@@ -37,10 +43,23 @@ Phases, one JSON line each:
            decode_chunks_batched and decode_spec_join (each correlated
            > 0.98 with the whole decode); the micro-batcher with 8
            concurrent callers (rows bit-equal to synthesize_batch); the
-           streaming engine for one utterance, twice; it runs last,
-           as the serving module pins cuDNN's deterministic algorithms
-Then one {"kernels": [...]} line (launch counts from the forward, train,
-train_cli and serve run, times, bounds; `launches` counts the first
+           streaming engine for one utterance, twice
+  serve_ms the 12-speaker model of train_ms: warmup(), 4 UUDB rows as
+           requests of speakers 0 and 11 (different PCM), one profiled, a
+           seeded repeat at one bucket (bit-equal); synthesize_batch of 16
+           rows of mixed speakers, twice (bit-equal); stream_from_latents
+           and decode_spec_join of one latent of speaker 5 (correlated >
+           0.98 with the whole decode); the micro-batcher with 8 callers of
+           8 speakers (each row its own speaker's); the voice-conversion
+           CLI, speaker 0 -> 5, in this process
+  serve_istft the single-band iSTFT model (ljs_istft_vits.json):
+           warmup(), 4 requests, one profiled, decode_spec_join
+           (correlated > 0.98)
+The serving phases run last, as the serving module pins cuDNN's
+deterministic algorithms for the process. Every phase's line carries its
+wall seconds. Then one {"kernels": [...]} line (launch counts from the
+forward, train, train_ms, train_cli and serving run, times, bounds;
+`launches` counts the first
 kernel of a port and `launches_by_kernel` each of its kernels: mas_bwd is
 mas_bwd_kernel and mas_path_kernel), the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}.
@@ -53,6 +72,7 @@ imports nothing of JAX or of mb_istft_vits_tpu.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -64,6 +84,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "ljs_mb_istft_vits.json")
 FILELIST = os.path.join(REPO, "filelists",
                         "ljs_audio_text_test_filelist.txt.cleaned")
+MS_CONFIG = os.path.join(REPO, "configs", "uudb_ms_istft_vits_ms.json")
+MS_FILELIST = os.path.join(REPO, "filelists",
+                           "uudb_audio_sid_text_train_filelist.txt")
+ISTFT_CONFIG = os.path.join(REPO, "configs", "ljs_istft_vits.json")
 SOURCE = "mb_istft_vits_torch/csrc/mas.cu"
 REPLACES = {
     "mas_fused": "mb_istft_vits_tpu/ops/mas_pallas.py:56",
@@ -88,10 +112,11 @@ BWD_SCAN = [(16, 400, 365), (16, 800, 365), (16, 1600, 365), (16, 800, 128),
             (16, 800, 1024)]
 KERNEL_SHAPES = [(64, 400, 200), (32, 400, 200), (64, 800, 380),
                  (8, 1000, 380)]
-BATCH = 16  # the training forward's and the train phase's batch
+BATCH = 16  # the training forward's and the train phases' batch
 SERVE_REQUESTS = 8  # new-text requests after warmup, micro-batch callers
 SERVE_BATCH = 16  # lines in the serve phase's synthesize_batch
 TRAIN_STEPS = 6  # timed train steps after the first
+TRAIN_MS_STEPS = 4  # the same, of the multi-speaker model
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 outside the
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -99,8 +124,18 @@ FP32_OPS_PER_S = 67e12
 REPS = 10
 
 
+_phase_start = [time.perf_counter()]
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with its wall seconds (from `run_phase`)."""
+    print(json.dumps({"phase": phase, **fields, "wall_seconds":
+                      time.perf_counter() - _phase_start[0]}), flush=True)
+
+
+def run_phase(fn, *args):
+    _phase_start[0] = time.perf_counter()
+    return fn(*args)
 
 
 def time_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
@@ -465,11 +500,6 @@ def phase_serve():
     def check(name, ok):
         checks[name] = checks.get(name, True) and bool(ok)
 
-    def wav_ok(audio, n=None):
-        return (audio.dtype == np.float32 and audio.size > 0
-                and bool(np.isfinite(audio).all())
-                and (n is None or audio.size == n))
-
     warm_pairs = [(tb, _next_bucket(int(tb * sm._frames_per_token),
                                     sm.FRAME_BUCKETS))
                   for tb in sm.TEXT_BUCKETS]
@@ -490,7 +520,7 @@ def phase_serve():
     for i, text in enumerate(fresh[:SERVE_REQUESTS]):
         audio, tm = sm.synthesize(text, seed=i)
         pcm = audio * 32767.0
-        check("requests_on_int16_grid", wav_ok(audio)
+        check("requests_on_int16_grid", _wav_ok(audio)
               and audio.size % hop == 0
               and np.array_equal(pcm, np.round(pcm)))
         tokens = len(sm.text_to_ids(text))
@@ -518,7 +548,7 @@ def phase_serve():
             break
         long_text += " " + text
     audio, tm = sm.synthesize(long_text, seed=0)
-    check("long_text_split", tm["pieces"] > 1 and wav_ok(audio)
+    check("long_text_split", tm["pieces"] > 1 and _wav_ok(audio)
           and audio.size % hop == 0)
     long_route = {"tokens": len(sm.text_to_ids(long_text)),
                   "pieces": tm["pieces"], "frame_bucket": tm["frame_bucket"],
@@ -536,10 +566,10 @@ def phase_serve():
         if out_sr is None:
             base = audios
             check("batch_rows", len(audios) == SERVE_BATCH and all(
-                wav_ok(a) and a.size % hop == 0 for a in audios))
+                _wav_ok(a) and a.size % hop == 0 for a in audios))
         else:
             check("batch_16k_lengths", all(
-                wav_ok(a, -(-b.size * out_sr // sr))
+                _wav_ok(a, -(-b.size * out_sr // sr))
                 for a, b in zip(audios, base)))
 
     # one latent through every chunked decode, held to the whole decode
@@ -569,7 +599,7 @@ def phase_serve():
         corr = float(np.corrcoef(full, out)[0, 1]) if out.size == full.size \
             else None
         latent[name] = dict(tm, corr_with_full=corr)
-        check("chunked_decodes", wav_ok(out, y_len * hop)
+        check("chunked_decodes", _wav_ok(out, y_len * hop)
               and corr is not None and corr > 0.98)
 
     # the micro-batcher: concurrent callers coalesce into batches
@@ -645,10 +675,212 @@ def phase_serve():
         raise AssertionError(f"serve checks failed: {failed}")
 
 
-def training_lengths(config, b, gen):
-    """Token ids [b, T_x] of the b longest lines of FILELIST (blanks
-    interspersed), their lengths, and ragged frame counts in [400, 800]
-    drawn from gen (at least the tokens; item 0 has 800)."""
+def _wav_ok(audio, n=None):
+    import numpy as np
+
+    return (audio.dtype == np.float32 and audio.size > 0
+            and bool(np.isfinite(audio).all())
+            and (n is None or audio.size == n))
+
+
+def _corr(a, b):
+    import numpy as np
+
+    return float(np.corrcoef(a, b)[0, 1]) if a.size == b.size else None
+
+
+def _request_row(sm, text, sid, tm):
+    return {"sid": sid, "tokens": len(sm.text_to_ids(text)),
+            "frame_bucket": tm["frame_bucket"],
+            "audio_seconds": tm["audio_seconds"], "total": tm["total"],
+            "rtf": tm["rtf"], "dispatch": tm["dispatch"], "sync": tm["sync"]}
+
+
+def _fresh_bucket_state(sm):
+    """Forget the adaptive frames-per-token ratio, so the next request
+    takes its frame bucket from the duration probe."""
+    sm._frames_per_token, sm._ratio_observed = 3.0, False
+
+
+def phase_serve_ms():
+    """Serving the Japanese multi-speaker multi-stream model
+    (uudb_ms_istft_vits_ms.json) at full width, seeded random weights:
+    warmup(); 4 MS_FILELIST rows as requests under speaker 0 and again
+    under speaker 11 (two speakers give two waveforms), one profiled, a
+    seeded request repeated at one bucket (bit-equal); synthesize_batch of
+    16 rows of mixed speakers, twice (bit-equal rows); one latent of
+    speaker 5 through stream_from_latents and decode_spec_join (each
+    correlated > 0.98 with the whole decode); the micro-batcher with 8
+    callers of 8 speakers (coalesced rows bit-equal to synthesize_batch of
+    the same texts and speakers); voice conversion of a synthesized
+    utterance, speaker 0 -> 5, through the CLI's main() in this process."""
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from mb_istft_vits_torch import voice_conversion
+    from mb_istft_vits_torch.data.dataset import load_wav
+    from mb_istft_vits_torch.infer.synthesis import SynthesisModule
+    from mb_istft_vits_torch.serve import MicroBatcher
+    from mb_istft_vits_torch.utils.audio import write_wav
+
+    sm = SynthesisModule(MS_CONFIG, seed=0, device="cuda")
+    hop = sm.hop_length
+    checks = {}
+
+    def check(name, ok):
+        checks[name] = checks.get(name, True) and bool(ok)
+
+    t0 = time.perf_counter()
+    sm.warmup()
+    warmup_s = time.perf_counter() - t0
+
+    rows = ms_rows()
+    texts = [t for _, t in rows[::500][:4]]
+    requests, audio = [], {}
+    for sid in (0, 11):
+        for i, text in enumerate(texts):
+            audio[sid, i], tm = sm.synthesize(text, sid, seed=i)
+            check("requests_finite", _wav_ok(audio[sid, i])
+                  and audio[sid, i].size % hop == 0)
+            requests.append(_request_row(sm, text, sid, tm))
+    check("speakers_differ", all(
+        not np.array_equal(audio[0, i], audio[11, i])
+        for i in range(len(texts))))
+    profile = profile_call(lambda: sm.synthesize(texts[2], 3, seed=0))
+    repeat = []
+    for _ in range(2):
+        _fresh_bucket_state(sm)
+        repeat.append(sm.synthesize(texts[0], 0, seed=0))
+    check("seeded_repeat_bit_equal",
+          repeat[0][1]["frame_bucket"] == repeat[1][1]["frame_bucket"]
+          and np.array_equal(repeat[0][0], repeat[1][0]))
+
+    batch_texts = [t for _, t in rows[::100][:SERVE_BATCH]]
+    batch_sids = [i % 12 for i in range(SERVE_BATCH)]
+    batches, outs = {}, []
+    for name in ("first", "repeat"):
+        got, tm = sm.synthesize_batch(batch_texts, batch_sids, seed=0)
+        batches[name] = dict(tm, rows=len(got))
+        outs.append(got)
+        check("batch_rows", len(got) == SERVE_BATCH and all(
+            _wav_ok(a) and a.size % hop == 0 for a in got))
+    check("batch_repeat_bit_equal", all(
+        np.array_equal(a, b) for a, b in zip(*outs)))
+
+    z, y_len, _ = sm.prepare_shared_latents(texts[0], 5, seed=0)
+    full = sm.infer_z_only(z, 5)
+    latent = {"frames": int(y_len)}
+    for name, fn in (
+            ("stream_from_latents",
+             lambda: np.concatenate(list(sm.stream_from_latents(z, 5)))),
+            ("decode_spec_join", lambda: sm.decode_spec_join(z, 5))):
+        t0 = time.perf_counter()
+        out = fn()
+        latent[name] = {"total": time.perf_counter() - t0,
+                        "corr_with_full": _corr(full, out)}
+        check("chunked_decodes", _wav_ok(out, y_len * hop)
+              and (latent[name]["corr_with_full"] or 0) > 0.98)
+
+    mb_calls = list(zip(batch_texts[:SERVE_REQUESTS], range(SERVE_REQUESTS)))
+    results, gate = {}, threading.Barrier(len(mb_calls))
+
+    def call(i):
+        gate.wait()
+        results[i] = mb.synthesize(mb_calls[i][0], mb_calls[i][1], seed=7)
+
+    with MicroBatcher(sm, max_batch=SERVE_REQUESTS, max_wait_ms=50.0) as mb:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(mb_calls))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        mb_s = time.perf_counter() - t0
+    check("microbatch_all_answered", len(results) == len(mb_calls))
+    sizes = sorted(t["batched"] for _, t in results.values())
+    check("microbatch_coalesced", max(sizes) >= 2)
+    group = max((t for _, t in results.values()), key=lambda t: t["batched"])
+    members = list(zip(group["batch_order"], group["batch_sids"]))
+    ref, _ = sm.synthesize_batch(group["batch_order"], group["batch_sids"],
+                                 seed=7)
+    check("microbatch_rows_keep_their_speaker", all(
+        np.array_equal(results[i][0], ref[members.index(mb_calls[i])])
+        for i in results if results[i][1] is group))
+
+    with tempfile.TemporaryDirectory() as root:
+        src, dst = (os.path.join(root, n) for n in ("src.wav", "vc.wav"))
+        write_wav(src, audio[0, 0], sm.sampling_rate)
+        t0 = time.perf_counter()
+        rc = voice_conversion.main(["-c", MS_CONFIG, "-i", src, "--sid-src",
+                                    "0", "--sid-tgt", "5", "-o", dst])
+        vc_s = time.perf_counter() - t0
+        converted, sr = load_wav(dst)
+        source, _ = load_wav(src)
+    check("voice_conversion", rc == 0 and sr == sm.sampling_rate
+          and np.isfinite(converted).all() and converted.size == source.size
+          and not np.array_equal(converted, source))
+
+    emit("serve_ms", config=os.path.relpath(MS_CONFIG, REPO),
+         weights="random", warmup_seconds=warmup_s, requests=requests,
+         median_rtf=statistics.median(r["rtf"] for r in requests),
+         profile_request=profile, seeded_repeat_bucket=repeat[0][1][
+             "frame_bucket"], batch=batches, batch_sids=batch_sids,
+         latent=latent, microbatch={"callers": len(mb_calls),
+                                    "batched": sizes, "seconds": mb_s},
+         voice_conversion={"seconds": vc_s, "samples": int(converted.size)},
+         checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"serve_ms checks failed: {failed}")
+
+
+def phase_serve_istft():
+    """Serving the single-band iSTFT model (ljs_istft_vits.json) at full
+    width: warmup(), 4 requests of FILELIST lines, one profiled, and one
+    latent through decode_spec_join (correlated > 0.98 with the whole
+    decode)."""
+    from mb_istft_vits_torch.infer.synthesis import SynthesisModule
+
+    sm = SynthesisModule(ISTFT_CONFIG, seed=0, device="cuda")
+    hop = sm.hop_length
+    t0 = time.perf_counter()
+    sm.warmup()
+    warmup_s = time.perf_counter() - t0
+    texts = _texts(4)
+    requests, ok = [], True
+    for i, text in enumerate(texts):
+        audio, tm = sm.synthesize(text, seed=i)
+        ok = ok and _wav_ok(audio) and audio.size % hop == 0
+        requests.append(_request_row(sm, text, None, tm))
+    profile = profile_call(lambda: sm.synthesize(texts[1], seed=9))
+    z, y_len, _ = sm.prepare_shared_latents(texts[0], seed=0)
+    full = sm.infer_z_only(z)
+    t0 = time.perf_counter()
+    joined = sm.decode_spec_join(z)
+    join_s = time.perf_counter() - t0
+    corr = _corr(full, joined)
+    checks = {"requests_finite": ok,
+              "decode_spec_join": _wav_ok(joined, y_len * hop)
+              and (corr or 0) > 0.98}
+    emit("serve_istft", config=os.path.relpath(ISTFT_CONFIG, REPO),
+         weights="random", warmup_seconds=warmup_s, requests=requests,
+         median_rtf=statistics.median(r["rtf"] for r in requests),
+         profile_request=profile,
+         latent={"frames": int(y_len), "decode_spec_join_s": join_s,
+                 "corr_with_full": corr}, checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"serve_istft checks failed: {failed}")
+
+
+def training_lengths(config, b, gen, texts=None):
+    """Token ids [b, T_x] of the b longest of `texts` (default: the first
+    500 lines of FILELIST; blanks interspersed), their lengths, and ragged
+    frame counts in [400, 800] drawn from gen (at least the tokens; item 0
+    has 800)."""
     import torch
 
     from mb_istft_vits_torch.text import frontend_ids
@@ -656,7 +888,7 @@ def training_lengths(config, b, gen):
     d = config.data
     ids = sorted((frontend_ids(text, d.text_module, d.text_cleaners,
                                d.add_blank, d.cleaned_text)
-                  for text in _texts(500)), key=len)[-b:]
+                  for text in texts or _texts(500)), key=len)[-b:]
     x = torch.zeros((b, max(len(i) for i in ids)), dtype=torch.long)
     for i, seq in enumerate(ids):
         x[i, :len(seq)] = torch.tensor(seq)
@@ -739,19 +971,19 @@ def phase_forward():
     return neg_cent, mask
 
 
-def train_batch(config, b, seed):
+def train_batch(config, b, seed, texts=None):
     """A collate-shaped batch on the card, as `BucketedBatcher.make_batch`
-    lays it out: the ids of the b longest lines of FILELIST, and seeded
-    int16 waveforms (a harmonic tone in noise) of ragged length, T_y in
-    [400, 800] frames plus a sub-hop tail, in a buffer of
-    800 * hop + (n_fft - hop) samples. The spectrogram is left to the
-    trainer, on the card."""
+    lays it out: the ids of the b longest of `texts` (training_lengths),
+    and seeded int16 waveforms (a harmonic tone in noise) at the config's
+    rate, of ragged length, T_y in [400, 800] frames plus a sub-hop tail,
+    in a buffer of 800 * hop + (n_fft - hop) samples. The spectrogram is
+    left to the trainer, on the card."""
     import numpy as np
     import torch
 
     d = config.data
     x, x_lengths, y_lengths = training_lengths(
-        config, b, torch.Generator().manual_seed(seed))
+        config, b, torch.Generator().manual_seed(seed), texts)
     rng = np.random.RandomState(seed)
     t_spec = int(y_lengths.max())
     t_wav = t_spec * d.hop_length + d.filter_length - d.hop_length
@@ -773,35 +1005,27 @@ def train_batch(config, b, seed):
     return {k: v.cuda() for k, v in batch.items()}
 
 
-def phase_train():
-    """Flagship GAN training, batch 16, through `train.step.train_step`:
-    one first step (cuDNN picks its algorithms for every new shape), then
-    TRAIN_STEPS timed steps on the same batch (host ms around a synced
-    step; the last split by CUDA events into prep + forward, D step and
-    G step, and its MAS input and output recorded), one profiled step and
-    one step with fp16_run (bf16 autocast)."""
-    import dataclasses
-    import math
+def mas_launches():
+    from mb_istft_vits_torch.ops import mas
+
+    return mas.launch_counts["mas_fused"] + mas.launch_counts["mas_fwd"]
+
+
+def run_train_steps(state, batch, timed_steps, after_first=None):
+    """`train.step.train_step` on `batch`: one first step (cuDNN picks its
+    algorithms for every new shape; then `after_first(state)`), then
+    `timed_steps` timed steps (host ms around a synced step; the last one
+    split by CUDA events into prep + forward, D step and G step, and its
+    MAS input and output recorded), then one profiled step. Returns the
+    steps, the split, peak memory, whether the recorded alignment equals
+    the plain MAS, and the profile with its MAS launches."""
     from unittest import mock
 
     import torch
 
-    from mb_istft_vits_torch.config import Config
     from mb_istft_vits_torch.models import synthesizer
     from mb_istft_vits_torch.ops import mas
     from mb_istft_vits_torch.train import step as tstep
-
-    config = Config.from_json(CONFIG)
-    config = dataclasses.replace(config, train=dataclasses.replace(
-        config.train, batch_size=BATCH))
-    state = tstep.create_train_state(config, torch.device("cuda"), seed=3)
-    batch = train_batch(config, BATCH, seed=4)
-    before = {f"{net}.{k}": v.detach().clone() for net, model in
-              (("g", state.net_g), ("d", state.net_d))
-              for k, v in model.named_parameters()}
-
-    def mas_launches():
-        return mas.launch_counts["mas_fused"] + mas.launch_counts["mas_fwd"]
 
     def step():
         n0 = mas_launches()
@@ -815,7 +1039,8 @@ def phase_train():
 
     torch.cuda.reset_peak_memory_stats()
     first = step()
-    steps = [step() for _ in range(TRAIN_STEPS - 1)]
+    first_check = after_first(state) if after_first else None
+    steps = [step() for _ in range(timed_steps - 1)]
 
     # the last timed step: CUDA events around its halves, MAS recorded
     marks, mas_io = [], {}
@@ -855,7 +1080,62 @@ def phase_train():
     n0 = mas_launches()
     profile = profile_call(lambda: (tstep.train_step(state, batch),
                                     torch.cuda.synchronize()))
-    profiled_mas = mas_launches() - n0
+    steady = [s["host_ms"] for s in steps]
+    return {"first": first, "steps": steps, "first_check": first_check,
+            "split": split, "peak": peak, "steady": steady,
+            "mas_shape": list(mas_io["neg_cent"].shape),
+            "attn_equals_plain": torch.equal(mas_io["path"], plain),
+            "profile": profile, "profiled_mas": mas_launches() - n0}
+
+
+def train_report(run, batch, config):
+    """The JSON fields both training phases report."""
+    profile = run["profile"]
+    return dict(
+        t_x_max=int(batch["x"].shape[1]),
+        t_y_max=int(batch["spec_lengths"].max()),
+        segment_size=config.train.segment_size, mas_shape=run["mas_shape"],
+        first_step_ms=run["first"]["host_ms"], step_ms=run["steady"],
+        step_ms_median=statistics.median(run["steady"]),
+        split_last_step=run["split"], peak_memory_bytes=run["peak"],
+        steps=[run["first"]] + run["steps"], profile=profile,
+        device_busy_share=profile["device_busy_share"],
+        mas_device_share=(profile["mas_device_ms"] / profile["device_ms"]
+                          if profile["device_ms"] else None))
+
+
+def train_checks(run):
+    """The checks both training phases hold."""
+    steps = [run["first"]] + run["steps"]
+    return {
+        "metrics_finite": all(math.isfinite(v) for s in steps
+                              for v in s["metrics"].values()),
+        "mas_once_per_step": all(s["mas_launches"] == 1 for s in steps)
+        and run["profiled_mas"] == 1,
+        "attn_equals_plain": run["attn_equals_plain"],
+    }
+
+
+def phase_train():
+    """Flagship GAN training, batch 16, through `train.step.train_step`
+    (run_train_steps: a first step, TRAIN_STEPS timed steps, a profiled
+    one), then one step with fp16_run (bf16 autocast)."""
+    import dataclasses
+
+    import torch
+
+    from mb_istft_vits_torch.config import Config
+    from mb_istft_vits_torch.train import step as tstep
+
+    config = Config.from_json(CONFIG)
+    config = dataclasses.replace(config, train=dataclasses.replace(
+        config.train, batch_size=BATCH))
+    state = tstep.create_train_state(config, torch.device("cuda"), seed=3)
+    batch = train_batch(config, BATCH, seed=4)
+    before = {f"{net}.{k}": v.detach().clone() for net, model in
+              (("g", state.net_g), ("d", state.net_d))
+              for k, v in model.named_parameters()}
+    run = run_train_steps(state, batch, TRAIN_STEPS)
     bf16 = dataclasses.replace(state, cfg=dataclasses.replace(
         config, train=dataclasses.replace(config.train, fp16_run=True)))
     bf16_metrics = {k: float(v) for k, v in
@@ -864,38 +1144,83 @@ def phase_train():
     params = {f"{net}.{k}": v for net, model in
               (("g", state.net_g), ("d", state.net_d))
               for k, v in model.named_parameters()}
-    mel = [s["metrics"]["loss/g/mel"] for s in [first] + steps]
-    checks = {
-        "metrics_finite": all(math.isfinite(v) for s in [first] + steps
-                              for v in s["metrics"].values()),
+    mel = [s["metrics"]["loss/g/mel"] for s in [run["first"]] + run["steps"]]
+    checks = dict(train_checks(run), **{
         "params_changed": all(not torch.equal(v, before[k])
                               for k, v in params.items()),
         "master_params_f32": all(v.dtype == torch.float32
                                  for v in params.values()),
         "mel_loss_fell": mel[-1] < mel[0],
-        "mas_once_per_step": all(s["mas_launches"] == 1
-                                 for s in [first] + steps)
-        and profiled_mas == 1,
-        "attn_equals_plain": torch.equal(mas_io["path"], plain),
         "fp16_run_finite": all(math.isfinite(v)
                                for v in bf16_metrics.values()),
-    }
-    steady = [s["host_ms"] for s in steps]
-    emit("train", batch=BATCH, t_x_max=int(batch["x"].shape[1]),
-         t_y_max=int(batch["spec_lengths"].max()),
-         segment_size=config.train.segment_size,
-         mas_shape=list(mas_io["neg_cent"].shape),
-         first_step_ms=first["host_ms"], step_ms=steady,
-         step_ms_median=statistics.median(steady), split_last_step=split,
-         peak_memory_bytes=peak, loss_g_mel=mel,
-         steps=[first] + steps, metrics_fp16_run=bf16_metrics,
-         profile=profile, mas_device_share=(
-             profile["mas_device_ms"] / profile["device_ms"]
-             if profile["device_ms"] else None),
-         checks=checks)
+    })
+    emit("train", batch=BATCH, **train_report(run, batch, config),
+         loss_g_mel=mel, metrics_fp16_run=bf16_metrics, checks=checks)
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"train checks failed: {failed}")
+    return statistics.median(run["steady"])
+
+
+def ms_rows():
+    """(sid, text) of MS_FILELIST's rows."""
+    with open(MS_FILELIST, encoding="utf-8") as f:
+        return [(int(sid), text) for _, sid, text in
+                (line.rstrip("\n").split("|") for line in f)]
+
+
+def phase_train_ms(flagship_step_ms):
+    """The Japanese multi-speaker multi-stream model
+    (uudb_ms_istft_vits_ms.json) at full width: batch 16 of the 16 longest
+    MS_FILELIST rows with their speakers, seeded int16 audio at 16 kHz;
+    a first step, TRAIN_MS_STEPS timed steps, a profiled one. Checks the
+    training checks, loss/g/subband == 0 (the MS head has none), and that
+    the first step's gradient of emb_g is non-zero exactly on the batch's
+    speakers' rows. Its median step is also given over the flagship's
+    (the train phase's, in this run)."""
+    import dataclasses
+
+    import torch
+
+    from mb_istft_vits_torch.config import Config
+    from mb_istft_vits_torch.text import frontend_ids
+    from mb_istft_vits_torch.train import step as tstep
+
+    config = Config.from_json(MS_CONFIG)
+    config = dataclasses.replace(config, train=dataclasses.replace(
+        config.train, batch_size=BATCH))
+    d = config.data
+    rows = sorted(ms_rows(), key=lambda r: len(frontend_ids(
+        r[1], d.text_module, d.text_cleaners, d.add_blank,
+        d.cleaned_text)))[-BATCH:]
+    # training_lengths keeps the b longest in this (ascending) order
+    batch = train_batch(config, BATCH, seed=5, texts=[t for _, t in rows])
+    batch["sid"] = torch.tensor([s for s, _ in rows], dtype=torch.int32,
+                                device="cuda")
+    state = tstep.create_train_state(config, torch.device("cuda"), seed=6)
+
+    def speakers_with_gradient(state):
+        grad = state.net_g.emb_g.weight.grad
+        return sorted(int(i) for i in torch.nonzero(grad.abs().sum(dim=1)))
+
+    run = run_train_steps(state, batch, TRAIN_MS_STEPS,
+                          after_first=speakers_with_gradient)
+    speakers = sorted({s for s, _ in rows})
+    checks = dict(train_checks(run), **{
+        "six_or_more_speakers": len(speakers) >= 6,
+        "loss_g_subband_zero": all(
+            s["metrics"]["loss/g/subband"] == 0.0
+            for s in [run["first"]] + run["steps"]),
+        "emb_g_grad_on_batch_speakers": run["first_check"] == speakers,
+    })
+    emit("train_ms", config=os.path.relpath(MS_CONFIG, REPO), batch=BATCH,
+         speakers=speakers, emb_g_rows_with_gradient=run["first_check"],
+         **train_report(run, batch, config),
+         step_ms_over_flagship=statistics.median(run["steady"])
+         / flagship_step_ms, checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"train_ms checks failed: {failed}")
 
 
 def phase_train_cli():
@@ -948,7 +1273,7 @@ def phase_train_cli():
 
 
 def main() -> int:
-    smi = phase_device()
+    smi = run_phase(phase_device)
     sys.path.insert(0, REPO)
     import torch
 
@@ -956,18 +1281,22 @@ def main() -> int:
     from mb_istft_vits_torch.ops import mas
 
     disable_tf32()
-    phase_build()
-    checks = phase_kernels()
+    run_phase(phase_build)
+    checks = run_phase(phase_kernels)
 
-    # the main path: serving, the training forward, training steps and
-    # the training CLI; the counts show which kernels it launched
+    # the main path: the training forward, training steps of both models,
+    # the training CLI and serving; the counts show which kernels it
+    # launched
     mas.reset_launch_counts()
-    neg_cent, mask = phase_forward()
-    phase_train()
-    phase_train_cli()
-    # last: the serving module pins cuDNN's deterministic algorithms for
+    neg_cent, mask = run_phase(phase_forward)
+    flagship_step_ms = run_phase(phase_train)
+    run_phase(phase_train_ms, flagship_step_ms)
+    run_phase(phase_train_cli)
+    # last: the serving modules pin cuDNN's deterministic algorithms for
     # the rest of the process
-    phase_serve()
+    run_phase(phase_serve)
+    run_phase(phase_serve_ms)
+    run_phase(phase_serve_istft)
     launches = dict(mas.launch_counts)
     missing = [k for k, v in launches.items() if v == 0]
     if missing:

@@ -3,7 +3,11 @@
 A port of `mb_istft_vits_tpu` that keeps that package's behaviour and
 public layouts and never imports it (nor JAX). What is ported so far:
 
-  - flagship serving (`infer.synthesis.SynthesisModule`): text -> waveform
+  - every shipped config but `use_sdp`: the multi-band, single-band and
+    multi-stream iSTFT heads, the English and Japanese frontends,
+    multi-speaker models and voice conversion (`python -m
+    mb_istft_vits_torch.voice_conversion`)
+  - serving (`infer.synthesis.SynthesisModule`): text -> waveform
     at static text / frame buckets, the long-text split, batched
     synthesis with resampling on the device, streaming, batched and
     spectrogram-joined chunked decodes; the micro-batcher and the

@@ -2,7 +2,8 @@
 batcher (counterpart of `mb_istft_vits_tpu/data/dataset.py`; reference
 `data_utils.py`).
 
-  - filelist rows `path|text` (TextAudioLoader, data_utils.py:15)
+  - filelist rows `path|text`, or `path|sid|text` when the config has
+    speakers (TextAudioLoader / TextAudioSpeakerLoader, data_utils.py:15)
   - text length filter [min_text_len, max_text_len] (data_utils.py:39-40)
   - optional blank interspersal (data_utils.py:89-98)
   - length-bucketed, epoch-seeded batching (DistributedBucketSampler,
@@ -10,7 +11,7 @@ batcher (counterpart of `mb_istft_vits_tpu/data/dataset.py`; reference
 
 Batches carry int16 PCM only; the trainer computes the linear
 spectrogram on the device (`train.step.prep_batch`). The host-side
-`.spec` cache and multi-speaker rows are not ported yet.
+`.spec` cache is not ported yet.
 """
 
 from __future__ import annotations
@@ -61,16 +62,15 @@ def load_wav(full_path: str) -> Tuple[np.ndarray, int]:
 
 
 class TextAudioDataset:
-    """(text ids, normalized wav) pairs of a single-speaker filelist,
-    shuffled once by `seed`. `lengths` estimates each row's spectrogram
-    frames from its file size (data_utils.py:60)."""
+    """(text ids, normalized wav[, speaker id]) of a filelist, shuffled
+    once by `seed`. `lengths` estimates each row's spectrogram frames from
+    its file size (data_utils.py:60)."""
 
     def __init__(self, filelist: str, cfg: DataConfig, seed: int = 1234):
-        if cfg.n_speakers > 0:
-            raise NotImplementedError(
-                "multi-speaker filelists are not ported yet")
         self.cfg = cfg
-        rows = load_filepaths_and_text(filelist)
+        self.multi_speaker = cfg.n_speakers > 0
+        rows = load_filepaths_and_text(
+            filelist, min_cols=3 if self.multi_speaker else 2)
         np.random.RandomState(seed).shuffle(rows)
         # the batcher pads text to this static cap, so a row whose ids
         # exceed it is dropped here rather than truncated at batch time
@@ -81,9 +81,10 @@ class TextAudioDataset:
         self._ids: List[np.ndarray] = []
         dropped_long = 0
         for row in rows:
-            if not cfg.min_text_len <= len(row[1]) <= cfg.max_text_len:
+            text = row[2] if self.multi_speaker else row[1]
+            if not cfg.min_text_len <= len(text) <= cfg.max_text_len:
                 continue
-            ids = self.get_text(row[1])
+            ids = self.get_text(text)
             if len(ids) > text_id_cap:
                 dropped_long += 1
                 continue
@@ -113,8 +114,11 @@ class TextAudioDataset:
         if sr != self.cfg.sampling_rate:
             raise ValueError(f"{sr} SR doesn't match target "
                              f"{self.cfg.sampling_rate} SR ({path})")
-        return {"x": self._ids[index],
+        item = {"x": self._ids[index],
                 "wav": (audio / self.cfg.max_wav_value).astype(np.float32)}
+        if self.multi_speaker:
+            item["sid"] = int(self.rows[index][1])
+        return item
 
 
 class BucketedBatcher:
@@ -175,15 +179,16 @@ class BucketedBatcher:
         """Collate to the bucket's static shape: x [B, T_x] int32, int16
         wav [B, t_spec * hop + (n_fft - hop), 1] (the sub-hop tail and the
         front end's padding, so the device spectrogram's frames see the
-        samples a per-utterance STFT would), lengths [B] int32."""
+        samples a per-utterance STFT would), lengths [B] int32, and for a
+        multi-speaker dataset sid [B] int32."""
         cfg = self.dataset.cfg
         t_x, t_spec = self.pad_shape(bucket_idx)
         t_wav = t_spec * cfg.hop_length + cfg.filter_length - cfg.hop_length
         b = len(indices)
         x = np.zeros((b, t_x), np.int32)
         wav = np.zeros((b, t_wav, 1), np.int16)
-        x_lengths, spec_lengths, wav_lengths = (np.zeros((b,), np.int32)
-                                                for _ in range(3))
+        x_lengths, spec_lengths, wav_lengths, sid = (
+            np.zeros((b,), np.int32) for _ in range(4))
         for i, idx in enumerate(indices):
             item = self.dataset[idx]
             ids, wv = item["x"], item["wav"]
@@ -195,8 +200,12 @@ class BucketedBatcher:
                                      -32768, 32767).astype(np.int16)
             spec_lengths[i] = min(lw // cfg.hop_length, t_spec)
             wav_lengths[i] = lw
-        return {"x": x, "x_lengths": x_lengths, "spec_lengths": spec_lengths,
-                "wav": wav, "wav_lengths": wav_lengths}
+            sid[i] = item.get("sid", 0)
+        batch = {"x": x, "x_lengths": x_lengths, "spec_lengths": spec_lengths,
+                 "wav": wav, "wav_lengths": wav_lengths}
+        if self.dataset.multi_speaker:
+            batch["sid"] = sid
+        return batch
 
     def iter_epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
         for bucket_idx, indices in self.epoch_batches(epoch):

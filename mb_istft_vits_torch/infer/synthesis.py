@@ -16,10 +16,14 @@ before the host waits for chunk i, whose copy to pinned memory was
 enqueued right behind its own decode, so the wait does not include chunk
 i+1's compute. On the CPU the same code runs in plain order.
 
+Speakers: on a multi-speaker model every route conditions on its `sid`
+(`sids` per row in `synthesize_batch`); `None` means speaker 0, as in the
+JAX package. Raw (not pre-cleaned) Japanese text runs the config's
+cleaners, which take katakana.
+
 Not ported: the serving mesh (`mesh`, `_shard_to_mesh`), the AOT
-executable cache (`aot_cache_dir`), `compute_dtype` other than f32, Orbax
-checkpoints (the port reads reference `.pth` files), multi-speaker `sid`
-and raw Japanese text.
+executable cache (`aot_cache_dir`), `compute_dtype` other than f32 and
+Orbax checkpoints (the port reads reference `.pth` files).
 """
 
 from __future__ import annotations
@@ -75,9 +79,12 @@ def _pcm16(o: torch.Tensor) -> torch.Tensor:
 
 
 class SynthesisModule:
-    """Loads a config and generator weights (a reference `G_*.pth`, or
-    random weights from `seed`) and serves text on `device` (CUDA unless
-    "cpu" is asked for; no fallback)."""
+    """Loads a config and generator weights (`params`, a state dict with
+    the reference names; else a reference `G_*.pth`; else random weights
+    from `seed`) and serves text on `device` (CUDA unless "cpu" is asked
+    for; no fallback). The positional order is the JAX package's
+    (config_path, checkpoint_path, params, seed); `device` is the port's
+    own and keyword-only."""
 
     TEXT_BUCKETS = (32, 64, 128, 192, 256, 384)
     FRAME_BUCKETS = (128, 192, 256, 384, 512, 768, 1024, 1536, 2048)
@@ -89,7 +96,9 @@ class SynthesisModule:
     BATCH_BUCKETS = (1, 2, 4, 8, 16, 32)
 
     def __init__(self, config_path: str,
-                 checkpoint_path: Optional[str] = None, seed: int = 0,
+                 checkpoint_path: Optional[str] = None,
+                 params: Optional[Dict[str, torch.Tensor]] = None,
+                 seed: int = 0, *,
                  device: Optional[Union[str, torch.device]] = None):
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
@@ -111,7 +120,9 @@ class SynthesisModule:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             model = Synthesizer(self.cfg)
-        if checkpoint_path is not None:
+        if params is not None:
+            model.load_state_dict(params)
+        elif checkpoint_path is not None:
             model.load_state_dict(load_generator_pth(checkpoint_path))
         self.model = model.to(dev).eval()
         self.hop_length = self.data_cfg.hop_length
@@ -159,6 +170,16 @@ class SynthesisModule:
 
         return wait
 
+    def _sid_rows(self, n: int, sid: Optional[int]
+                  ) -> Optional[torch.Tensor]:
+        """Speaker ids [n] on the device for `n` rows of one speaker
+        (`None`: speaker 0), or None when the model has no speakers
+        (JAX `_sid` / `_sid_rows`)."""
+        if self.cfg.n_speakers <= 0:
+            return None
+        return self._to_device(np.full((n,), 0 if sid is None else int(sid),
+                                       np.int64))
+
     def _rng(self, seed: Optional[int]) -> torch.Generator:
         """A generator freshly seeded with `seed` (so equal seeds give
         equal noise whatever ran before), else the module's own stream."""
@@ -169,31 +190,39 @@ class SynthesisModule:
     # ------------------------------------------------------------------
     # model calls
     # ------------------------------------------------------------------
-    def _predict_frames(self, x, x_lengths, length_scale) -> torch.Tensor:
+    def _predict_frames(self, x, x_lengths, sid, length_scale
+                        ) -> torch.Tensor:
         with torch.no_grad():
-            return self.model.predict_frames(x, x_lengths, length_scale)
+            return self.model.predict_frames(x, x_lengths, sid,
+                                             length_scale=length_scale)
 
-    def _infer(self, x, x_lengths, noise_scale, length_scale, max_frames,
-               generator, out_sr: Optional[int] = None):
-        """-> (InferOutput, int16 PCM [B, T_wav(out_sr)] on the device)."""
+    def _infer(self, x, x_lengths, sid, noise_scale, length_scale,
+               max_frames, generator, out_sr: Optional[int] = None):
+        """sid: device ids [B] or None -> (InferOutput, int16 PCM
+        [B, T_wav(out_sr)] on the device)."""
         with torch.no_grad():
-            out = self.model.infer(x, x_lengths, noise_scale, length_scale,
+            out = self.model.infer(x, x_lengths, sid, noise_scale=noise_scale,
+                                   length_scale=length_scale,
                                    max_frames=max_frames, generator=generator)
             o = out.o
             if out_sr is not None and out_sr != self.sampling_rate:
                 o = resample_poly_torch(o, self.sampling_rate, out_sr)
             return out, _pcm16(o)
 
-    def _decode_pcm(self, windows: np.ndarray, sid=None) -> torch.Tensor:
-        """z windows [N, T, C] (host) -> int16 PCM [N, T * hop] (device)."""
+    def _decode_pcm(self, windows: np.ndarray, sid: Optional[int] = None
+                    ) -> torch.Tensor:
+        """z windows [N, T, C] (host) of speaker `sid` -> int16 PCM
+        [N, T * hop] (device)."""
         with torch.no_grad():
-            return _pcm16(self.model.decode(self._to_device(windows), sid)[0])
+            return _pcm16(self.model.decode(
+                self._to_device(windows), self._sid_rows(len(windows), sid))[0])
 
-    def _decode_spec(self, windows: np.ndarray, sid=None):
-        """z windows [N, T, C] -> (spec, phase) [N, F, s, bins] (device)."""
+    def _decode_spec(self, windows: np.ndarray, sid: Optional[int] = None):
+        """z windows [N, T, C] of speaker `sid` -> (spec, phase) on the
+        device, [N, F, s, bins] ([N, F, bins] for the iSTFT head)."""
         with torch.no_grad():
-            _, _, spec, phase = self.model.decode(self._to_device(windows),
-                                                  sid)
+            _, _, spec, phase = self.model.decode(
+                self._to_device(windows), self._sid_rows(len(windows), sid))
             return spec, phase
 
     # ------------------------------------------------------------------
@@ -202,13 +231,12 @@ class SynthesisModule:
     def text_to_ids(self, text: str, cleaned: Optional[bool] = None
                     ) -> np.ndarray:
         """Token ids (int32, read-only, cached per (text, cleaned));
-        `cleaned` overrides the config's `cleaned_text`."""
+        `cleaned` overrides the config's `cleaned_text`. Uncleaned text
+        runs the config's cleaners; for a Japanese config they take
+        katakana (`japanese_cleaners`), where the JAX package serves raw
+        kanji/kana through pyopenjtalk, which the port does not carry."""
         cfg = self.data_cfg
         cleaned = cfg.cleaned_text if cleaned is None else cleaned
-        if not cleaned and cfg.text_module == "text_JP":
-            raise NotImplementedError(
-                "raw Japanese text needs the Japanese frontend, which is "
-                "not ported yet; pass cleaned (phoneme) text")
         key = (text, cleaned)
         hit = self._ids_cache.get(key)
         if hit is not None:
@@ -250,10 +278,11 @@ class SynthesisModule:
         decode runs at it."""
         return min(_next_bucket(n, self.FRAME_BUCKETS), self.MAX_FRAMES)
 
-    def _frames_bucket(self, x, x_lengths, length_scale) -> int:
+    def _frames_bucket(self, x, x_lengths, sid, length_scale) -> int:
         """Exact output-frame bucket from the duration probe (text
         encoder + duration predictor only)."""
-        frames = int(self._predict_frames(x, x_lengths, length_scale)[0])
+        frames = int(self._predict_frames(x, x_lengths, sid,
+                                          length_scale)[0])
         return self._frame_bucket_capped(frames)
 
     def warmup(self, pairs: Optional[Sequence[Tuple[int, int]]] = None
@@ -262,7 +291,7 @@ class SynthesisModule:
         ``pairs`` (text_bucket, frame_bucket) ahead of traffic, so live
         requests at those shapes pay no per-shape set-up. The default
         takes each text bucket with its expected frame bucket (tokens x
-        the adaptive frames-per-token ratio)."""
+        the adaptive frames-per-token ratio). Runs as speaker 0."""
         if pairs is None:
             pairs = [
                 (tb, _next_bucket(int(tb * self._frames_per_token),
@@ -270,11 +299,12 @@ class SynthesisModule:
                 for tb in self.TEXT_BUCKETS
             ]
         pcm = None
+        sid = self._sid_rows(1, 0)
         for tb, fb in pairs:
             x = self._to_device(np.ones((1, tb), np.int64))
             xl = self._to_device(np.asarray([tb], np.int64))
-            self._predict_frames(x, xl, 1.0)
-            _, pcm = self._infer(x, xl, 0.667, 1.0, fb, self._rng(0))
+            self._predict_frames(x, xl, sid, 1.0)
+            _, pcm = self._infer(x, xl, sid, 0.667, 1.0, fb, self._rng(0))
         if pcm is not None:
             self._fetch([pcm[:, :1]])()  # sync: every shape has run
 
@@ -297,10 +327,10 @@ class SynthesisModule:
             seed, want_z=True)
 
     def synthesize(self, text: str, sid: Optional[int] = None, **kwargs):
-        """-> (float32 audio on the int16 grid [y_len * hop], timings).
-        Keywords: noise_scale, length_scale, noise_scale_w, cleaned, seed.
-        The ported model has one speaker and the deterministic duration
-        predictor, so `sid` and `noise_scale_w` change nothing."""
+        """-> (float32 audio on the int16 grid [y_len * hop], timings) of
+        speaker `sid`. Keywords: noise_scale, length_scale, noise_scale_w,
+        cleaned, seed. The ported model has the deterministic duration
+        predictor, so `noise_scale_w` changes nothing."""
         audio, _, timings = self._synthesize_impl(text, sid, want_z=False,
                                                   **kwargs)
         return audio, timings
@@ -343,6 +373,7 @@ class SynthesisModule:
         `rtf`, `frame_bucket`, `frontend`, `dispatch` (queueing the
         decode), `sync` (waiting for the device and the copy)."""
         x, x_lengths = self._pad_ids_cached(ids)
+        sid_arr = self._sid_rows(1, sid)
         t0 = time.perf_counter()
         t_frontend = t0 - t_start
 
@@ -350,13 +381,13 @@ class SynthesisModule:
             est = int(len(ids) * self._frames_per_token * length_scale) + 16
             bucket = self._frame_bucket_capped(est)
         else:
-            bucket = self._frames_bucket(x, x_lengths, length_scale)
+            bucket = self._frames_bucket(x, x_lengths, sid_arr, length_scale)
         t_dispatch = 0.0
         t_sync = 0.0
         while True:
             td = time.perf_counter()
-            out, pcm16 = self._infer(x, x_lengths, noise_scale, length_scale,
-                                     bucket, self._rng(seed))
+            out, pcm16 = self._infer(x, x_lengths, sid_arr, noise_scale,
+                                     length_scale, bucket, self._rng(seed))
             fetch = [pcm16[0], out.y_lengths]
             if want_z:
                 fetch.append(out.latents[0][0])
@@ -478,12 +509,14 @@ class SynthesisModule:
         per-token frame durations w [T_x] when ``return_durations``."""
         ids = self.text_to_ids(text, cleaned)
         x, x_lengths = self._pad_ids_cached(ids)
-        bucket = self._frames_bucket(x, x_lengths, length_scale)
+        sid_arr = self._sid_rows(1, sid)
+        bucket = self._frames_bucket(x, x_lengths, sid_arr, length_scale)
         while True:
             with torch.no_grad():
                 attn, _, y_lengths, (z, *_) = self.model.infer_z_only(
-                    x, x_lengths, noise_scale, length_scale,
-                    max_frames=bucket, generator=self._rng(seed))
+                    x, x_lengths, sid_arr, noise_scale=noise_scale,
+                    length_scale=length_scale, max_frames=bucket,
+                    generator=self._rng(seed))
             fetch = [z[0], y_lengths]
             if return_durations:
                 fetch.append(attn[0].sum(dim=0))
@@ -780,7 +813,8 @@ class SynthesisModule:
     ) -> np.ndarray:
         """Chunked decode joined in the spectrogram domain: each chunk is
         decoded to its (spec, phase) head output, overlapping frames are
-        crossfaded as complex spectra, and one iSTFT + PQMF tail runs over
+        crossfaded as complex spectra, and the head's tail (iSTFT, then
+        PQMF or the synthesis conv for the sub-band heads) runs once over
         the joined spectrogram. ``frame_xcorr`` adds a frame-shift search
         at each join; ``batched`` decodes all chunks as one batch, else
         chunk by chunk in a one-deep pipeline."""
@@ -900,10 +934,10 @@ class SynthesisModule:
         out_sample_rate: Optional[int] = None,
     ) -> Tuple[List[np.ndarray], Dict[str, float]]:
         """Synthesize a list of utterances as one batch, padded to (batch,
-        text, frame) buckets. Returns per-utterance trimmed audio and
-        aggregate timings. `out_sample_rate` resamples on the device
-        (`resample_poly_torch`); timings count audio seconds at the output
-        rate."""
+        text, frame) buckets, row i as speaker `sids[i]` (`None`: 0).
+        Returns per-utterance trimmed audio and aggregate timings.
+        `out_sample_rate` resamples on the device (`resample_poly_torch`,
+        up or down); timings count audio seconds at the output rate."""
         t0 = time.perf_counter()
         ids_list = [self.text_to_ids(t, cleaned) for t in texts]
         n = len(ids_list)
@@ -918,14 +952,20 @@ class SynthesisModule:
             x[i, : len(ids)] = ids
             x_lengths[i] = len(ids)
         x, x_lengths = self._to_device(x), self._to_device(x_lengths)
-        frames = self._predict_frames(x, x_lengths, length_scale)
+        sid_arr = None
+        if self.cfg.n_speakers > 0:
+            rows = np.zeros((nb,), np.int64)
+            for i, s in enumerate((sids or [])[:n]):
+                rows[i] = 0 if s is None else int(s)
+            sid_arr = self._to_device(rows)
+        frames = self._predict_frames(x, x_lengths, sid_arr, length_scale)
         # capped like the single-request path: one out-of-distribution
         # row must not size the whole batch's decode without bound
         bucket = self._frame_bucket_capped(int(frames.max()))
         out_sr = (None if out_sample_rate in (None, self.sampling_rate)
                   else int(out_sample_rate))
-        out, pcm16 = self._infer(x, x_lengths, noise_scale, length_scale,
-                                 bucket, self._rng(seed), out_sr)
+        out, pcm16 = self._infer(x, x_lengths, sid_arr, noise_scale,
+                                 length_scale, bucket, self._rng(seed), out_sr)
         pcm_host, y_lens = self._fetch([pcm16, out.y_lengths])()
         wavs = pcm_host.astype(np.float32) / 32767.0
         sr_out = out_sr or self.sampling_rate

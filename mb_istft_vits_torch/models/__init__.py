@@ -1,4 +1,8 @@
-from mb_istft_vits_torch.models.decoders import MultibandISTFTGenerator  # noqa: F401
+from mb_istft_vits_torch.models.decoders import (  # noqa: F401
+    ISTFTGenerator,
+    MultibandISTFTGenerator,
+    MultistreamISTFTGenerator,
+)
 from mb_istft_vits_torch.models.discriminator import (  # noqa: F401
     DiscriminatorP,
     DiscriminatorS,

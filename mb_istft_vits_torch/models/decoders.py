@@ -1,16 +1,20 @@
-"""Multi-band iSTFT waveform decoder (counterpart of
-`mb_istft_vits_tpu/models/decoders.py`; reference `models.py:309-384`).
+"""Waveform decoders: the iSTFT, multi-band iSTFT and multi-stream iSTFT
+heads (counterpart of `mb_istft_vits_tpu/models/decoders.py`; reference
+`models.py:248-475`).
 
 Trunk: conv_pre -> [ConvTranspose upsample -> mean of N ResBlocks] x L ->
-leaky_relu -> ReflectionPad(1, 0) -> subband_conv_post; then an
-exp / pi*sin spec-phase head, one iSTFT per band and PQMF synthesis.
-The single-band iSTFT and the multi-stream heads are a later slice.
+leaky_relu -> ReflectionPad(1, 0) -> post conv; then an exp / pi*sin
+spec-phase head and an iSTFT: one full-band iSTFT (`ISTFTGenerator`), or
+one per band followed by PQMF synthesis (`MultibandISTFTGenerator`) or by
+zero-stuffing and a learned 63-tap synthesis conv
+(`MultistreamISTFTGenerator`). The speaker conditioning g [B, gin, 1]
+reaches every ResBlock of the trunk.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -19,15 +23,15 @@ import torch.nn.functional as F
 from mb_istft_vits_torch.dsp.pqmf import PQMF
 from mb_istft_vits_torch.dsp.stft import istft
 from mb_istft_vits_torch.nn import Conv1d, ConvTranspose1d, ResBlock1, ResBlock2
-from mb_istft_vits_torch.nn.layers import leaky_relu
+from mb_istft_vits_torch.nn.layers import get_padding, leaky_relu
 
 
 def _spec_phase(x: torch.Tensor, n_fft: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """exp-magnitude / pi*sin-phase head (reference models.py:294-295) on
-    [B, s, n_fft + 2, T] -> two [B, s, n_bins, T]."""
+    [..., n_fft + 2, T] -> two [..., n_bins, T]."""
     n_bins = n_fft // 2 + 1
-    mag, ph = torch.split(x, [n_bins, n_fft + 2 - n_bins], dim=2)
+    mag, ph = torch.split(x, [n_bins, n_fft + 2 - n_bins], dim=-2)
     return torch.exp(mag), math.pi * torch.sin(ph)
 
 
@@ -46,7 +50,7 @@ class _UpsamplerTrunk(nn.Module):
                  resblock_kernel_sizes: Sequence[int],
                  resblock_dilation_sizes: Sequence[Sequence[int]],
                  upsample_rates: Sequence[int], upsample_initial_channel: int,
-                 upsample_kernel_sizes: Sequence[int]):
+                 upsample_kernel_sizes: Sequence[int], gin_channels: int = 0):
         super().__init__()
         self.num_kernels = len(resblock_kernel_sizes)
         res_cls = ResBlock1 if resblock == "1" else ResBlock2
@@ -61,40 +65,78 @@ class _UpsamplerTrunk(nn.Module):
                 ch * 2, ch, k, stride=u, padding=(k - u) // 2,
                 weight_norm=True))
             for rk, rd in zip(resblock_kernel_sizes, resblock_dilation_sizes):
-                self.resblocks.append(res_cls(ch, rk, tuple(rd)))
+                self.resblocks.append(res_cls(ch, rk, tuple(rd),
+                                              gin_channels=gin_channels))
         self.out_channels = ch
 
-    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x: torch.Tensor,
+              g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The trunk through the left reflection pad: [B, C, T] ->
+        [B, ch, T * prod(upsample_rates) + 1]."""
         x = self.conv_pre(x)
         n = self.num_kernels
         for i, up in enumerate(self.ups):
             x = up(leaky_relu(x))
             xs = None
             for block in self.resblocks[i * n:(i + 1) * n]:
-                y = block(x)
+                y = block(x, g=g)
                 xs = y if xs is None else xs + y
             x = xs / n
-        return leaky_relu(x, 0.01)  # F.leaky_relu default slope (models.py:291)
+        # F.leaky_relu's default slope (models.py:291)
+        return _reflection_pad_left1(leaky_relu(x, 0.01))
 
 
-class MultibandISTFTGenerator(_UpsamplerTrunk):
-    """Per-band iSTFT + fixed PQMF synthesis (reference models.py:309-384)."""
+class ISTFTGenerator(_UpsamplerTrunk):
+    """One full-band iSTFT (reference models.py:248-306)."""
 
     def __init__(self, initial_channel: int, resblock: str,
                  resblock_kernel_sizes: Sequence[int],
                  resblock_dilation_sizes: Sequence[Sequence[int]],
                  upsample_rates: Sequence[int], upsample_initial_channel: int,
                  upsample_kernel_sizes: Sequence[int], gen_istft_n_fft: int,
-                 gen_istft_hop_size: int, subbands: int = 4):
+                 gen_istft_hop_size: int, gin_channels: int = 0):
         super().__init__(initial_channel, resblock, resblock_kernel_sizes,
                          resblock_dilation_sizes, upsample_rates,
-                         upsample_initial_channel, upsample_kernel_sizes)
+                         upsample_initial_channel, upsample_kernel_sizes,
+                         gin_channels)
+        self.n_fft, self.hop = gen_istft_n_fft, gen_istft_hop_size
+        self.conv_post = Conv1d(self.out_channels, gen_istft_n_fft + 2, 7,
+                                padding=3, weight_norm=True)
+
+    def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None):
+        """x [B, C, T] -> (o [B, 1, T_wav], None, spec [B, bins, T'],
+        phase [B, bins, T'])."""
+        spec, phase = _spec_phase(self.conv_post(self.trunk(x, g)),
+                                  self.n_fft)
+        return self.spec_tail(spec, phase), None, spec, phase
+
+    def spec_tail(self, spec: torch.Tensor,
+                  phase: torch.Tensor) -> torch.Tensor:
+        """(spec, phase) [B, bins, F] -> waveform [B, 1, T_wav]: the back
+        half of `forward` (the serving spectrogram-domain join)."""
+        return istft(spec, phase, self.n_fft, self.hop, self.n_fft)[:, None]
+
+
+class _SubbandISTFTGenerator(_UpsamplerTrunk):
+    """Trunk + per-band iSTFT shared by the MB and MS heads (reference
+    models.py:344-373, 430-461)."""
+
+    def __init__(self, initial_channel: int, resblock: str,
+                 resblock_kernel_sizes: Sequence[int],
+                 resblock_dilation_sizes: Sequence[Sequence[int]],
+                 upsample_rates: Sequence[int], upsample_initial_channel: int,
+                 upsample_kernel_sizes: Sequence[int], gen_istft_n_fft: int,
+                 gen_istft_hop_size: int, subbands: int = 4,
+                 gin_channels: int = 0):
+        super().__init__(initial_channel, resblock, resblock_kernel_sizes,
+                         resblock_dilation_sizes, upsample_rates,
+                         upsample_initial_channel, upsample_kernel_sizes,
+                         gin_channels)
         self.n_fft, self.hop, self.subbands = (gen_istft_n_fft,
                                                gen_istft_hop_size, subbands)
         self.subband_conv_post = Conv1d(
             self.out_channels, subbands * (gen_istft_n_fft + 2), 7, padding=3,
             weight_norm=True)
-        self.pqmf = PQMF(subbands)
 
     def bands_from_spec(self, spec: torch.Tensor,
                         phase: torch.Tensor) -> torch.Tensor:
@@ -105,19 +147,52 @@ class MultibandISTFTGenerator(_UpsamplerTrunk):
                   self.n_fft, self.hop, self.n_fft)
         return y.view(b, s, -1)
 
-    def forward(self, x: torch.Tensor):
-        """x [B, C, T] -> (o [B, 1, T_wav], o_mb [B, s, T_band],
-        spec [B, s, bins, T'], phase [B, s, bins, T'])."""
-        x = self.subband_conv_post(_reflection_pad_left1(self.trunk(x)))
+    def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None):
+        """x [B, C, T] -> (o [B, 1, T_wav], o_mb, spec [B, s, bins, T'],
+        phase [B, s, bins, T']); o_mb is the head's `_synthesis` input."""
+        x = self.subband_conv_post(self.trunk(x, g))
         b, _, t = x.shape
         spec, phase = _spec_phase(x.view(b, self.subbands, self.n_fft + 2, t),
                                   self.n_fft)
-        y_mb = self.bands_from_spec(spec, phase)
-        return self.pqmf.synthesis_bm(y_mb), y_mb, spec, phase
+        o, o_mb = self._synthesis(self.bands_from_spec(spec, phase))
+        return o, o_mb, spec, phase
 
     def spec_tail(self, spec: torch.Tensor,
                   phase: torch.Tensor) -> torch.Tensor:
         """The back half of `forward`: (spec, phase) [B, s, bins, F] ->
         full-band waveform [B, 1, T_wav] (the serving spectrogram-domain
         join)."""
-        return self.pqmf.synthesis_bm(self.bands_from_spec(spec, phase))
+        return self._synthesis(self.bands_from_spec(spec, phase))[0]
+
+
+class MultibandISTFTGenerator(_SubbandISTFTGenerator):
+    """Per-band iSTFT + fixed PQMF synthesis (reference models.py:309-384).
+    o_mb is the band-major sub-band waveforms [B, s, T_band]."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.pqmf = PQMF(self.subbands)
+
+    def _synthesis(self, y_mb: torch.Tensor):
+        return self.pqmf.synthesis_bm(y_mb), y_mb
+
+
+class MultistreamISTFTGenerator(_SubbandISTFTGenerator):
+    """Per-band iSTFT + trainable synthesis filters (reference
+    models.py:387-474): zero-stuffing x s (the identity `updown_filter`,
+    models.py:463) then a learned 63-tap conv, s -> 1 channels, no bias.
+    o_mb is the zero-stuffed conv input [B, s, T_band * s] (JAX returns
+    it channels-last, [B, T_band * s, s])."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.multistream_conv_post = Conv1d(
+            self.subbands, 1, 63, padding=get_padding(63, 1), bias=False,
+            weight_norm=True)
+
+    def _synthesis(self, y_mb: torch.Tensor):
+        # band c's sample t at offset 0 of block t, scaled by s (JAX
+        # `_zero_stuff`, decoders.py:232-240)
+        b, s, t = y_mb.shape
+        up = F.pad((y_mb * s)[..., None], (0, s - 1)).reshape(b, s, t * s)
+        return self.multistream_conv_post(up), up

@@ -49,21 +49,23 @@ class PosteriorEncoder(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  hidden_channels: int, kernel_size: int, dilation_rate: int,
-                 n_layers: int):
+                 n_layers: int, gin_channels: int = 0):
         super().__init__()
         self.out_channels = out_channels
         self.pre = Conv1d(in_channels, hidden_channels, 1)
-        self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers)
+        self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers,
+                      gin_channels=gin_channels)
         self.proj = Conv1d(hidden_channels, out_channels * 2, 1)
 
     def forward(self, y: torch.Tensor, y_lengths: torch.Tensor,
+                g: Optional[torch.Tensor] = None,
                 eps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
-        """y [B, spec, T] -> (z, m, logs [B, C, T], y_mask [B, 1, T]).
-        `eps` is the posterior noise [B, C, T]; drawn from `generator` when
-        not given."""
+        """y [B, spec, T], g [B, gin, 1] or None -> (z, m, logs [B, C, T],
+        y_mask [B, 1, T]). `eps` is the posterior noise [B, C, T]; drawn
+        from `generator` when not given."""
         y_mask = sequence_mask(y_lengths, y.shape[2]).unsqueeze(1).to(y.dtype)
-        h = self.enc(self.pre(y) * y_mask, y_mask)
+        h = self.enc(self.pre(y) * y_mask, y_mask, g)
         stats = self.proj(h) * y_mask
         m, logs = torch.split(stats, self.out_channels, dim=1)
         if eps is None:

@@ -1,18 +1,20 @@
 """Top-level VITS synthesizer: training forward, inference, latent-only
-inference, decoder-only decode (counterpart of
-`mb_istft_vits_tpu/models/synthesizer.py`; reference `models.py:568-798`).
+inference, decoder-only decode, copy-synthesis and voice conversion
+(counterpart of `mb_istft_vits_tpu/models/synthesizer.py`; reference
+`models.py:568-798`).
 
 Modules run in [B, C, T]; the public methods take and return the JAX
 package's channels-last layouts ([B, T, C], waveforms [B, T_wav, 1],
-alignments [B, T_y, T_x]), so the two packages compare like with like.
+alignments [B, T_y, T_x]), so the two packages compare like with like,
+and take JAX's parameters in JAX's positional order.
 
-Randomness is explicit: `forward` takes the posterior noise and the slice
-starts, `infer` the prior noise `eps`, as tensors; whatever is not given
-is drawn from the `generator` passed in.
+Randomness is explicit: `forward`, `fake_slice`, `reconstruct` and
+`voice_conversion` take the posterior noise and the slice starts, `infer`
+the prior noise `eps`, as keyword-only tensors; whatever is not given is
+drawn from the keyword-only `generator`.
 
-Not ported yet: the stochastic duration predictor (and with it the
-`noise_scale_w` knob of `infer`), multi-speaker conditioning and the
-single-band / multi-stream decoder heads.
+Not ported yet: the stochastic duration predictor; `noise_scale_w`, its
+knob, is accepted and has no effect.
 """
 
 from __future__ import annotations
@@ -24,7 +26,11 @@ import torch
 import torch.nn as nn
 
 from mb_istft_vits_torch.config import ModelConfig
-from mb_istft_vits_torch.models.decoders import MultibandISTFTGenerator
+from mb_istft_vits_torch.models.decoders import (
+    ISTFTGenerator,
+    MultibandISTFTGenerator,
+    MultistreamISTFTGenerator,
+)
 from mb_istft_vits_torch.models.duration import DurationPredictor
 from mb_istft_vits_torch.models.encoders import PosteriorEncoder, TextEncoder
 from mb_istft_vits_torch.nn.flows import Flip, ResidualCouplingLayer
@@ -35,34 +41,51 @@ from mb_istft_vits_torch.ops import (
     sequence_mask,
 )
 
+_DECODERS = {"istft": ISTFTGenerator, "mb_istft": MultibandISTFTGenerator,
+             "ms_istft": MultistreamISTFTGenerator}
+
 
 def _cl(x: torch.Tensor) -> torch.Tensor:
     """[B, C, T] <-> [B, T, C]."""
     return x.transpose(1, 2)
 
 
+def _spec_to_jax(x: torch.Tensor) -> torch.Tensor:
+    """A head's spec or phase to JAX's layout: [B, s, bins, T'] ->
+    [B, T', s, bins] (sub-band heads), [B, bins, T'] -> [B, T', bins]
+    (the iSTFT head)."""
+    return x.permute(0, 3, 1, 2) if x.dim() == 4 else _cl(x)
+
+
+def _spec_from_jax(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of `_spec_to_jax`."""
+    return x.permute(0, 2, 3, 1) if x.dim() == 4 else _cl(x)
+
+
 class ResidualCouplingBlock(nn.Module):
     """4 x (affine coupling + Flip), invertible (reference models.py:184-214)."""
 
     def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
-                 dilation_rate: int, n_layers: int, n_flows: int = 4):
+                 dilation_rate: int, n_layers: int, n_flows: int = 4,
+                 gin_channels: int = 0):
         super().__init__()
         self.flows = nn.ModuleList()
         for _ in range(n_flows):
             self.flows.append(ResidualCouplingLayer(
                 channels, hidden_channels, kernel_size, dilation_rate,
-                n_layers, mean_only=True))
+                n_layers, gin_channels=gin_channels, mean_only=True))
             self.flows.append(Flip())
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                g: Optional[torch.Tensor] = None,
                 reverse: bool = False) -> torch.Tensor:
         if not reverse:
             for flow in self.flows:
-                x = flow(x) if isinstance(flow, Flip) else flow(x, x_mask)[0]
+                x = flow(x) if isinstance(flow, Flip) else flow(x, x_mask, g)[0]
         else:
             for flow in reversed(self.flows):
                 x = flow(x) if isinstance(flow, Flip) else \
-                    flow(x, x_mask, reverse=True)
+                    flow(x, x_mask, g, reverse=True)
         return x
 
 
@@ -85,52 +108,81 @@ def mas_neg_cent(z_p: torch.Tensor, m_p: torch.Tensor,
 
 
 class InferOutput(NamedTuple):
-    o: torch.Tensor          # [B, T_wav, 1]
-    o_mb: torch.Tensor       # [B, s, T_band]
-    spec: torch.Tensor       # [B, T', s, bins]
-    phase: torch.Tensor      # [B, T', s, bins]
-    attn: torch.Tensor       # [B, max_frames, T_x]
-    y_mask: torch.Tensor     # [B, max_frames, 1]
-    y_lengths: torch.Tensor  # [B] frames
+    o: torch.Tensor                 # [B, T_wav, 1]
+    # mb_istft: sub-band waveforms [B, s, T_band]; ms_istft: the
+    # zero-stuffed synthesis-conv input [B, s, T_band * s]; istft: None
+    o_mb: Optional[torch.Tensor]
+    spec: torch.Tensor              # [B, T', s, bins] ([B, T', bins]: istft)
+    phase: torch.Tensor             # as spec
+    attn: torch.Tensor              # [B, max_frames, T_x]
+    y_mask: torch.Tensor            # [B, max_frames, 1]
+    y_lengths: torch.Tensor         # [B] frames
     latents: Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 class Synthesizer(nn.Module):
-    """SynthesizerTrn equivalent (reference models.py:568-798) for the
-    single-speaker MB-iSTFT model with the deterministic duration
-    predictor."""
+    """SynthesizerTrn equivalent (reference models.py:568-798) with the
+    deterministic duration predictor, any of the three decoder heads, and
+    a speaker embedding `emb_g` when the model has more than one
+    speaker."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.decoder_kind != "mb_istft":
-            raise NotImplementedError(
-                f"decoder {cfg.decoder_kind!r} is not ported yet (mb_istft is)")
         if cfg.use_sdp:
             raise NotImplementedError(
                 "the stochastic duration predictor is not ported yet")
-        if cfg.n_speakers > 1:
-            raise NotImplementedError("multi-speaker models are not ported yet")
         self.cfg = cfg
+        gin = cfg.gin_channels
         self.enc_p = TextEncoder(
             cfg.n_vocab, cfg.inter_channels, cfg.hidden_channels,
             cfg.filter_channels, cfg.n_heads, cfg.n_layers, cfg.kernel_size,
             cfg.p_dropout)
-        self.dec = MultibandISTFTGenerator(
+        kind = cfg.decoder_kind
+        head = () if kind == "istft" else (cfg.subbands,)
+        self.dec = _DECODERS[kind](
             cfg.inter_channels, cfg.resblock, cfg.resblock_kernel_sizes,
             cfg.resblock_dilation_sizes, cfg.upsample_rates,
             cfg.upsample_initial_channel, cfg.upsample_kernel_sizes,
-            cfg.gen_istft_n_fft, cfg.gen_istft_hop_size, cfg.subbands)
+            cfg.gen_istft_n_fft, cfg.gen_istft_hop_size, *head,
+            gin_channels=gin)
         self.enc_q = PosteriorEncoder(cfg.spec_channels, cfg.inter_channels,
-                                      cfg.hidden_channels, 5, 1, 16)
+                                      cfg.hidden_channels, 5, 1, 16,
+                                      gin_channels=gin)
         self.flow = ResidualCouplingBlock(cfg.inter_channels,
-                                          cfg.hidden_channels, 5, 1, 4)
-        self.dp = DurationPredictor(cfg.hidden_channels, 256, 3, 0.5)
+                                          cfg.hidden_channels, 5, 1, 4,
+                                          gin_channels=gin)
+        self.dp = DurationPredictor(cfg.hidden_channels, 256, 3, 0.5,
+                                    gin_channels=gin)
+        if cfg.n_speakers > 1:
+            self.emb_g = nn.Embedding(cfg.n_speakers, gin)
 
-    def _decode(self, z: torch.Tensor):
+    def _speaker(self, sid: Optional[torch.Tensor]
+                 ) -> Optional[torch.Tensor]:
+        """sid [B] -> g [B, gin, 1]; None for a model of 0 or 1 speakers,
+        whatever `sid` is (JAX `_speaker`)."""
+        if self.cfg.n_speakers > 1 and sid is not None:
+            return self.emb_g(sid.long()).unsqueeze(-1)
+        return None
+
+    def _check_mode(self, train: Optional[bool]) -> None:
+        """JAX's `train` selects dropout; here `self.training` does, so a
+        `train` that disagrees with it is an error, not a silent no-op."""
+        if train is not None and bool(train) != self.training:
+            raise ValueError(
+                f"train={train} but the module is in "
+                f"{'train' if self.training else 'eval'} mode; dropout "
+                "follows .train() / .eval()")
+
+    def _decode(self, z: torch.Tensor, g: Optional[torch.Tensor]):
         """Decoder on [B, C, T]; outputs in the JAX layouts."""
-        o, o_mb, spec, phase = self.dec(z)
-        return (_cl(o), o_mb, spec.permute(0, 3, 1, 2),
-                phase.permute(0, 3, 1, 2))
+        o, o_mb, spec, phase = self.dec(z, g)
+        return _cl(o), o_mb, _spec_to_jax(spec), _spec_to_jax(phase)
+
+    def _posterior(self, y, y_lengths, g, posterior_eps, generator):
+        return self.enc_q(
+            _cl(y), y_lengths, g,
+            eps=None if posterior_eps is None else _cl(posterior_eps),
+            generator=generator)
 
     # ------------------------------------------------------------------
     # training forward (reference models.py:657-695)
@@ -141,29 +193,33 @@ class Synthesizer(nn.Module):
         x_lengths: torch.Tensor,
         y: torch.Tensor,
         y_lengths: torch.Tensor,
+        sid: Optional[torch.Tensor] = None,
+        train: Optional[bool] = None,
+        *,
         posterior_eps: Optional[torch.Tensor] = None,
         ids_slice: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         mas_force: str = "auto",
     ):
-        """x [B, T_x] ids, y [B, T_y, spec] linear spectrogram,
-        posterior_eps [B, T_y, C]. Dropout follows `self.training`.
-        mas_force is `ops.mas.maximum_path(force=)`: "auto" takes the
-        fused kernel whenever its shared memory fits, which on an H100 is
-        every training shape, so "two_pass" is how a run reaches the
-        two-pass kernels.
+        """x [B, T_x] ids, y [B, T_y, spec] linear spectrogram, sid [B]
+        speaker ids, posterior_eps [B, T_y, C]. Dropout follows
+        `self.training` (`train`, if given, must agree). mas_force is
+        `ops.mas.maximum_path(force=)`: "auto" takes the fused kernel
+        whenever its shared memory fits, which on an H100 is every
+        training shape, so "two_pass" is how a run reaches the two-pass
+        kernels.
 
-        Returns the JAX package's tuple: (o [B, seg*hop, 1],
-        o_mb [B, s, seg*hop/s], l_length [B], attn [B, T_y, T_x],
-        ids_slice [B], x_mask [B, T_x, 1], y_mask [B, T_y, 1],
-        (z, z_p, m_p, logs_p, m_q, logs_q) each [B, T, C])."""
+        Returns the JAX package's tuple: (o [B, seg*hop, 1], o_mb,
+        l_length [B], attn [B, T_y, T_x], ids_slice [B], x_mask [B, T_x, 1],
+        y_mask [B, T_y, 1], (z, z_p, m_p, logs_p, m_q, logs_q) each
+        [B, T, C])."""
+        self._check_mode(train)
         cfg = self.cfg
         h, m_p, logs_p, x_mask = self.enc_p(x, x_lengths)
-        z, m_q, logs_q, y_mask = self.enc_q(
-            _cl(y), y_lengths,
-            eps=None if posterior_eps is None else _cl(posterior_eps),
-            generator=generator)
-        z_p = self.flow(z, y_mask)
+        g = self._speaker(sid)
+        z, m_q, logs_q, y_mask = self._posterior(y, y_lengths, g,
+                                                 posterior_eps, generator)
+        z_p = self.flow(z, y_mask, g)
 
         # hard alignment (reference models.py:668-678), no gradient
         with torch.no_grad():
@@ -177,7 +233,7 @@ class Synthesizer(nn.Module):
         w = attn32.sum(dim=1, keepdim=True)  # [B, 1, T_x]
         x_mask32 = x_mask.float()
         logw_ = torch.log(w + 1e-6) * x_mask32
-        logw = self.dp(h, x_mask).float()
+        logw = self.dp(h, x_mask, g).float()
         l_length = torch.sum((logw - logw_) ** 2, dim=(1, 2)) / torch.sum(
             x_mask32)
 
@@ -188,7 +244,7 @@ class Synthesizer(nn.Module):
         z_slice, ids_slice = rand_slice_segments(
             z, y_lengths, cfg.segment_size, generator=generator,
             ids_str=ids_slice)
-        o, o_mb, _, _ = self._decode(z_slice)
+        o, o_mb, _, _ = self._decode(z_slice, g)
         return (o, o_mb, l_length, attn, ids_slice, _cl(x_mask), _cl(y_mask),
                 tuple(_cl(t) for t in (z, z_p, m_p, logs_p, m_q, logs_q)))
 
@@ -196,6 +252,9 @@ class Synthesizer(nn.Module):
         self,
         y: torch.Tensor,
         y_lengths: torch.Tensor,
+        sid: Optional[torch.Tensor] = None,
+        train: Optional[bool] = None,
+        *,
         posterior_eps: Optional[torch.Tensor] = None,
         ids_slice: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
@@ -205,31 +264,32 @@ class Synthesizer(nn.Module):
         output is `forward`'s (o, ids_slice). The trainer runs one full
         forward per step instead, as the reference does; this stays for
         callers that need only the fake."""
-        z, _, _, _ = self.enc_q(
-            _cl(y), y_lengths,
-            eps=None if posterior_eps is None else _cl(posterior_eps),
-            generator=generator)
+        self._check_mode(train)
+        g = self._speaker(sid)
+        z, _, _, _ = self._posterior(y, y_lengths, g, posterior_eps,
+                                     generator)
         z_slice, ids_slice = rand_slice_segments(
             z, y_lengths, self.cfg.segment_size, generator=generator,
             ids_str=ids_slice)
-        return self._decode(z_slice)[0], ids_slice
+        return self._decode(z_slice, g)[0], ids_slice
 
     # ------------------------------------------------------------------
     # inference (reference models.py:697-737)
     # ------------------------------------------------------------------
-    def _duration_head(self, x, x_lengths, length_scale):
+    def _duration_head(self, x, x_lengths, sid, length_scale):
         """Text encoder + duration predictor + ceil: the one definition of
         predicted durations, shared by `predict_frames` and `infer`."""
         h, m_p, logs_p, x_mask = self.enc_p(x, x_lengths)
-        logw = self.dp(h, x_mask)
+        g = self._speaker(sid)
+        logw = self.dp(h, x_mask, g)
         w_ceil = torch.ceil(torch.exp(logw) * x_mask * length_scale)
         y_lengths = torch.clamp(torch.sum(w_ceil, dim=(1, 2)), min=1.0)
-        return m_p, logs_p, x_mask, w_ceil, y_lengths.to(torch.int32)
+        return m_p, logs_p, x_mask, g, w_ceil, y_lengths.to(torch.int32)
 
-    def _infer_latents(self, x, x_lengths, noise_scale, length_scale,
+    def _infer_latents(self, x, x_lengths, sid, noise_scale, length_scale,
                        max_frames, eps, generator):
-        m_p, logs_p, x_mask, w_ceil, y_lengths = self._duration_head(
-            x, x_lengths, length_scale)
+        m_p, logs_p, x_mask, g, w_ceil, y_lengths = self._duration_head(
+            x, x_lengths, sid, length_scale)
         if max_frames is None:
             max_frames = int(y_lengths.max())
         y_lengths = torch.clamp(y_lengths, max=max_frames)
@@ -244,62 +304,119 @@ class Synthesizer(nn.Module):
         else:
             eps = _cl(eps)
         z_p = m_p + eps * torch.exp(logs_p) * noise_scale
-        z = self.flow(z_p, y_mask, reverse=True)
-        return z, z_p, m_p, logs_p, attn, y_mask, y_lengths
+        z = self.flow(z_p, y_mask, g, reverse=True)
+        return z, z_p, m_p, logs_p, attn, y_mask, y_lengths, g
 
     def predict_frames(self, x: torch.Tensor, x_lengths: torch.Tensor,
-                       length_scale: float = 1.0) -> torch.Tensor:
+                       sid: Optional[torch.Tensor] = None,
+                       length_scale: float = 1.0,
+                       noise_scale_w: float = 1.0) -> torch.Tensor:
         """Total predicted frames per utterance [B] (text encoder +
         duration predictor only)."""
-        return self._duration_head(x, x_lengths, length_scale)[-1]
+        return self._duration_head(x, x_lengths, sid, length_scale)[-1]
 
     def infer(
         self,
         x: torch.Tensor,
         x_lengths: torch.Tensor,
+        sid: Optional[torch.Tensor] = None,
         noise_scale: float = 1.0,
         length_scale: float = 1.0,
+        noise_scale_w: float = 1.0,
         max_frames: Optional[int] = 1000,
+        *,
         eps: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> InferOutput:
         """Text -> waveform. `max_frames` bounds the output frames as in the
         JAX package; None sizes it to the longest predicted utterance.
         `eps` [B, max_frames, C] is the prior noise."""
-        z, z_p, m_p, logs_p, attn, y_mask, y_lengths = self._infer_latents(
-            x, x_lengths, noise_scale, length_scale, max_frames, eps,
-            generator)
-        o, o_mb, spec, phase = self._decode(z * y_mask)
+        z, z_p, m_p, logs_p, attn, y_mask, y_lengths, g = \
+            self._infer_latents(x, x_lengths, sid, noise_scale, length_scale,
+                                max_frames, eps, generator)
+        o, o_mb, spec, phase = self._decode(z * y_mask, g)
         return InferOutput(o, o_mb, spec, phase, attn, _cl(y_mask), y_lengths,
                            tuple(_cl(t) for t in (z, z_p, m_p, logs_p)))
 
-    def infer_z_only(self, x: torch.Tensor, x_lengths: torch.Tensor,
-                     noise_scale: float = 1.0, length_scale: float = 1.0,
-                     max_frames: Optional[int] = 1000,
-                     eps: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None):
+    def infer_z_only(
+        self,
+        x: torch.Tensor,
+        x_lengths: torch.Tensor,
+        sid: Optional[torch.Tensor] = None,
+        noise_scale: float = 1.0,
+        length_scale: float = 1.0,
+        noise_scale_w: float = 1.0,
+        max_frames: Optional[int] = 1000,
+        *,
+        eps: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
         """Latents only: (attn, y_mask, y_lengths, (z, z_p, m_p, logs_p))
         (reference models.py:742-788)."""
-        z, z_p, m_p, logs_p, attn, y_mask, y_lengths = self._infer_latents(
-            x, x_lengths, noise_scale, length_scale, max_frames, eps,
-            generator)
+        z, z_p, m_p, logs_p, attn, y_mask, y_lengths, _ = \
+            self._infer_latents(x, x_lengths, sid, noise_scale, length_scale,
+                                max_frames, eps, generator)
         return (attn, _cl(y_mask), y_lengths,
                 tuple(_cl(t) for t in (z, z_p, m_p, logs_p)))
 
     def decode(self, z: torch.Tensor, sid: Optional[torch.Tensor] = None,
                y_mask: Optional[torch.Tensor] = None):
         """Decoder only: z [B, T, C] (y_mask [B, T, 1]) ->
-        (o [B, T_wav, 1], o_mb, spec, phase). `sid` is the JAX surface's
-        speaker id; the ported model has one speaker, so it changes
-        nothing."""
+        (o [B, T_wav, 1], o_mb, spec, phase), conditioned on `sid`."""
         if y_mask is not None:
             z = z * y_mask
-        return self._decode(_cl(z))
+        return self._decode(_cl(z), self._speaker(sid))
 
     def decode_spec_tail(self, spec: torch.Tensor,
                          phase: torch.Tensor) -> torch.Tensor:
-        """The decoder head's back half, (spec, phase) [B, F, s, bins] ->
-        waveform [B, T_wav, 1]: the same code and filters as the forward
-        pass, for the serving spectrogram-domain join."""
-        return _cl(self.dec.spec_tail(spec.permute(0, 2, 3, 1),
-                                      phase.permute(0, 2, 3, 1)))
+        """The decoder head's back half, (spec, phase) [B, F, s, bins]
+        ([B, F, bins] for the iSTFT head) -> waveform [B, T_wav, 1]: the
+        same code and filters as the forward pass, for the serving
+        spectrogram-domain join."""
+        return _cl(self.dec.spec_tail(_spec_from_jax(spec),
+                                      _spec_from_jax(phase)))
+
+    # ------------------------------------------------------------------
+    # copy-synthesis and voice conversion (reference models.py:790-798)
+    # ------------------------------------------------------------------
+    def reconstruct(
+        self,
+        y: torch.Tensor,
+        y_lengths: torch.Tensor,
+        sid: Optional[torch.Tensor] = None,
+        *,
+        posterior_eps: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """Copy-synthesis: the posterior of the spectrogram y [B, T, spec]
+        decoded back to a waveform, time-aligned with y ->
+        (o [B, T * hop, 1], y_mask [B, T, 1])."""
+        g = self._speaker(sid)
+        z, _, _, y_mask = self._posterior(y, y_lengths, g, posterior_eps,
+                                          generator)
+        return self._decode(z * y_mask, g)[0], _cl(y_mask)
+
+    def voice_conversion(
+        self,
+        y: torch.Tensor,
+        y_lengths: torch.Tensor,
+        sid_src: torch.Tensor,
+        sid_tgt: torch.Tensor,
+        *,
+        posterior_eps: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """Latent-space speaker swap: the posterior under `sid_src`
+        through the flow, back through it under `sid_tgt`, decoded as
+        `sid_tgt` -> (o_hat [B, T * hop, 1], o_hat_mb, y_mask [B, T, 1],
+        (z, z_p, z_hat) each [B, T, C])."""
+        if self.cfg.n_speakers <= 1:
+            raise ValueError(
+                "voice conversion needs a multi-speaker model (n_speakers > 1)")
+        g_src, g_tgt = self._speaker(sid_src), self._speaker(sid_tgt)
+        z, _, _, y_mask = self._posterior(y, y_lengths, g_src, posterior_eps,
+                                          generator)
+        z_p = self.flow(z, y_mask, g_src)
+        z_hat = self.flow(z_p, y_mask, g_tgt, reverse=True)
+        o_hat, o_hat_mb, _, _ = self._decode(z_hat * y_mask, g_tgt)
+        return o_hat, o_hat_mb, _cl(y_mask), (_cl(z), _cl(z_p), _cl(z_hat))

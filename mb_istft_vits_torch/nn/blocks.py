@@ -2,8 +2,10 @@
 (counterpart of `mb_istft_vits_tpu/nn/blocks.py`; reference
 `modules.py:111-262`). All on [B, C, T] with masks [B, 1, T].
 
-Global (speaker) conditioning is not ported yet: the multi-speaker model
-is a later slice.
+Global (speaker) conditioning g is [B, gin, 1]. WN adds it through one
+weight-normed `cond_layer` that serves every layer; each ResBlock adds it
+through a plain 1x1 `cond` conv before its first dilation (JAX
+`nn/blocks.py:115-131, 164-165, 209-210`).
 """
 
 from __future__ import annotations
@@ -21,10 +23,16 @@ class WN(nn.Module):
     weight-normed (reference modules.py:111-176)."""
 
     def __init__(self, hidden_channels: int, kernel_size: int,
-                 dilation_rate: int, n_layers: int, p_dropout: float = 0.0):
+                 dilation_rate: int, n_layers: int, gin_channels: int = 0,
+                 p_dropout: float = 0.0):
         super().__init__()
         h = hidden_channels
         self.hidden_channels = h
+        if gin_channels:
+            # one conv for every layer's conditioning: layer i takes
+            # channels [i * 2h, (i + 1) * 2h)
+            self.cond_layer = Conv1d(gin_channels, 2 * h * n_layers, 1,
+                                     weight_norm=True)
         self.in_layers = nn.ModuleList()
         self.res_skip_layers = nn.ModuleList()
         for i in range(n_layers):
@@ -37,13 +45,17 @@ class WN(nn.Module):
                 Conv1d(h, res_skip_ch, 1, weight_norm=True))
         self.drop = nn.Dropout(p_dropout)
 
-    def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.hidden_channels
         output = torch.zeros_like(x)
+        g_all = self.cond_layer(g) if g is not None else None
         last = len(self.in_layers) - 1
         for i, (conv_in, conv_rs) in enumerate(
                 zip(self.in_layers, self.res_skip_layers)):
             x_in = conv_in(x)
+            if g_all is not None:
+                x_in = x_in + g_all[:, i * 2 * h:(i + 1) * 2 * h]
             acts = self.drop(torch.tanh(x_in[:, :h]) * torch.sigmoid(x_in[:, h:]))
             res_skip = conv_rs(acts)
             if i < last:
@@ -54,12 +66,26 @@ class WN(nn.Module):
         return output * x_mask
 
 
-class ResBlock1(nn.Module):
+class _ResBlock(nn.Module):
+    """The speaker conditioning of both ResBlock types: a plain 1x1 conv
+    with a bias, added to the input when g is given."""
+
+    def __init__(self, channels: int, gin_channels: int):
+        super().__init__()
+        self.cond = Conv1d(gin_channels, channels, 1) if gin_channels \
+            else None
+
+    def _condition(self, x: torch.Tensor,
+                   g: Optional[torch.Tensor]) -> torch.Tensor:
+        return x if g is None or self.cond is None else x + self.cond(g)
+
+
+class ResBlock1(_ResBlock):
     """HiFi-GAN ResBlock type 1 (reference modules.py:187-228)."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
-                 dilation: Sequence[int] = (1, 3, 5)):
-        super().__init__()
+                 dilation: Sequence[int] = (1, 3, 5), gin_channels: int = 0):
+        super().__init__(channels, gin_channels)
         self.convs1 = nn.ModuleList(
             Conv1d(channels, channels, kernel_size, dilation=d,
                    padding=get_padding(kernel_size, d), weight_norm=True)
@@ -70,7 +96,9 @@ class ResBlock1(nn.Module):
             for _ in dilation)
 
     def forward(self, x: torch.Tensor,
-                x_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                x_mask: Optional[torch.Tensor] = None,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self._condition(x, g)
         for c1, c2 in zip(self.convs1, self.convs2):
             xt = leaky_relu(x)
             if x_mask is not None:
@@ -84,19 +112,21 @@ class ResBlock1(nn.Module):
         return x
 
 
-class ResBlock2(nn.Module):
+class ResBlock2(_ResBlock):
     """HiFi-GAN ResBlock type 2 (reference modules.py:237-262)."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
-                 dilation: Sequence[int] = (1, 3)):
-        super().__init__()
+                 dilation: Sequence[int] = (1, 3), gin_channels: int = 0):
+        super().__init__(channels, gin_channels)
         self.convs = nn.ModuleList(
             Conv1d(channels, channels, kernel_size, dilation=d,
                    padding=get_padding(kernel_size, d), weight_norm=True)
             for d in dilation)
 
     def forward(self, x: torch.Tensor,
-                x_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                x_mask: Optional[torch.Tensor] = None,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self._condition(x, g)
         for c in self.convs:
             xt = leaky_relu(x)
             if x_mask is not None:

@@ -1,8 +1,11 @@
 """Normalizing-flow layers of the prior flow: Flip and the affine residual
 coupling (counterpart of `mb_istft_vits_tpu/nn/flows.py`; reference
-`modules.py:280-353`). Flip reverses the channel axis of [B, C, T]."""
+`modules.py:280-353`). Flip reverses the channel axis of [B, C, T];
+the speaker conditioning g is [B, gin, 1]."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -30,23 +33,23 @@ class ResidualCouplingLayer(nn.Module):
 
     def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
                  dilation_rate: int, n_layers: int, p_dropout: float = 0.0,
-                 mean_only: bool = False):
+                 gin_channels: int = 0, mean_only: bool = False):
         super().__init__()
         self.half = channels // 2
         self.mean_only = mean_only
         self.pre = Conv1d(self.half, hidden_channels, 1)
         self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers,
-                      p_dropout=p_dropout)
+                      gin_channels=gin_channels, p_dropout=p_dropout)
         self.post = Conv1d(hidden_channels,
                            self.half * (2 - int(mean_only)), 1)
         nn.init.zeros_(self.post.weight)
         nn.init.zeros_(self.post.bias)
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
-                reverse: bool = False):
+                g: Optional[torch.Tensor] = None, reverse: bool = False):
         """forward -> (x, logdet [B]); reverse -> x."""
         x0, x1 = x[:, :self.half], x[:, self.half:]
-        h = self.enc(self.pre(x0) * x_mask, x_mask)
+        h = self.enc(self.pre(x0) * x_mask, x_mask, g)
         stats = self.post(h) * x_mask
         if self.mean_only:
             m, logs = stats, torch.zeros_like(stats)

@@ -91,7 +91,10 @@ class MicroBatcher:
     ):
         """Blocking single-utterance call with the same signature shape
         as SynthesisModule.synthesize; returns (audio, timings). timings
-        carries ``batched`` — how many requests shared the dispatch."""
+        carries ``batched`` — how many requests shared the dispatch — and
+        for a coalesced call ``batch_order`` and ``batch_sids``, the texts
+        and speakers of the batch's rows. Requests of different speakers
+        share a batch; each row keeps its own."""
         if not self._running:
             self.start()
         req = _Pending(text, sid)
@@ -163,7 +166,8 @@ class MicroBatcher:
                         length_scale=ls, noise_scale_w=nsw,
                         cleaned=cleaned, seed=seed)
                     t = dict(t, batched=len(group),
-                             batch_order=[g.text for g in group])
+                             batch_order=[g.text for g in group],
+                             batch_sids=[g.sid for g in group])
                     for g, a in zip(group, audios):
                         g.audio, g.timings = a, t
             except BaseException as e:  # surface to EVERY waiter

@@ -1,23 +1,19 @@
 """Text frontend (host-side).
 
 The config's `data.text_module` selects the frontend, as in the reference
-(data_utils.py:33-36). The English/IPA frontend ("text") is ported; the
-Japanese one ("text_JP") waits for a later slice.
+(data_utils.py:33-36): "text" is English/IPA, "text_JP" Japanese.
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence
 
-from mb_istft_vits_torch.text import en
+from mb_istft_vits_torch.text import en, jp
 
-_MODULES = {"text": en, "en": en}
+_MODULES = {"text": en, "en": en, "text_JP": jp, "jp": jp}
 
 
 def get_module(text_module: str):
-    if text_module in ("text_JP", "jp"):
-        raise NotImplementedError(
-            "the Japanese text frontend is not ported to mb_istft_vits_torch")
     try:
         return _MODULES[text_module]
     except KeyError:

@@ -8,8 +8,9 @@ One step, in the reference's own order:
   3. discriminator step on (real slice, detached fake): LSGAN loss,
      AdamW, no clip
   4. generator step against the updated discriminator:
-     gen + fm + mel * c_mel + dur + kl * c_kl + sub-band MR-STFT,
-     gradients value-clipped at `grad_clip_value`, AdamW
+     gen + fm + mel * c_mel + dur + kl * c_kl + sub-band MR-STFT (the
+     multi-band head only; 0 for the others), gradients value-clipped at
+     `grad_clip_value`, AdamW
   5. lr = lr0 * lr_decay ^ (step // steps_per_epoch), taken at the step
      count before the increment
 
@@ -161,8 +162,8 @@ def g_forward(state: TrainState, batch: Dict[str, torch.Tensor],
     eps, ids_slice = (None, None) if draws is None else draws
     with _autocast(state):
         return state.net_g(batch["x"], batch["x_lengths"], batch["spec"],
-                           batch["spec_lengths"], posterior_eps=eps,
-                           ids_slice=ids_slice,
+                           batch["spec_lengths"], batch.get("sid"),
+                           posterior_eps=eps, ids_slice=ids_slice,
                            generator=state.step_generator())
 
 
@@ -193,8 +194,11 @@ def d_step(state: TrainState, y: torch.Tensor, y_hat: torch.Tensor
 def g_step(state: TrainState, batch, out, y: torch.Tensor
            ) -> Dict[str, torch.Tensor]:
     """Generator step against the (already updated) discriminator: the
-    losses of `out` (the step's forward), value clip, AdamW."""
+    losses of `out` (the step's forward), value clip, AdamW. The sub-band
+    MR-STFT loss is the multi-band head's only (JAX `train/step.py:457`);
+    for the others it is logged as 0."""
     d, t = state.cfg.data, state.cfg.train
+    is_mb = state.cfg.model.mb_istft_vits
     (y_hat, y_hat_mb, l_length, _, ids_slice, _, y_mask,
      (_, z_p, m_p, logs_p, _, logs_q)) = out
     seg_frames = t.segment_size // d.hop_length
@@ -203,7 +207,6 @@ def g_step(state: TrainState, batch, out, y: torch.Tensor
                               ids_slice, seg_frames)
         y_mel = spec_to_mel(spec, d.filter_length, d.n_mel_channels,
                             d.sampling_rate, d.mel_fmin, d.mel_fmax)
-        y_mb = state.net_g.dec.pqmf.analysis_bm(y.float())
     y_hat_mel = mel_spectrogram(y_hat[..., 0].float(), d.filter_length,
                                 d.n_mel_channels, d.sampling_rate,
                                 d.hop_length, d.win_length, d.mel_fmin,
@@ -222,7 +225,9 @@ def g_step(state: TrainState, batch, out, y: torch.Tensor
         "loss/g/dur": torch.sum(l_length.float()),
         "loss/g/kl": kl_loss(z_p, logs_q, m_p, logs_p, y_mask) * t.c_kl,
         "loss/g/subband": subband_stft_loss(
-            y_mb, y_hat_mb, t.fft_sizes, t.hop_sizes, t.win_lengths),
+            state.net_g.dec.pqmf.analysis_bm(y.float()), y_hat_mb,
+            t.fft_sizes, t.hop_sizes, t.win_lengths)
+        if is_mb else torch.zeros((), device=y.device),
     }
     total = sum(losses.values())
     state.optim_g.zero_grad()
@@ -242,8 +247,9 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     """One D step then one G step against the updated D; advances
     `state.step`. `batch` holds the collate's tensors on the model's
     device ("x", "x_lengths", "wav" int16 or float [B, T_wav, 1],
-    "spec_lengths", optionally "spec"). Returns the JAX package's metrics
-    as 0-d tensors (reading them waits for the device)."""
+    "spec_lengths", optionally "spec", and "sid" [B] for a multi-speaker
+    model). Returns the JAX package's metrics as 0-d tensors (reading
+    them waits for the device)."""
     batch = prep_batch(batch, state.cfg)
     out = g_forward(state, batch, draws)
     y = real_slice(state, batch, out[4])

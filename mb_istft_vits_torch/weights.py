@@ -4,9 +4,10 @@ port's state dicts.
 The port's modules carry the reference `SynthesizerTrn` and
 `MultiPeriodDiscriminator` state-dict names, so a reference checkpoint
 loads as it is. `state_dict_from_jax` is the port's own copy of the JAX
-package's `export_torch_generator` mapping (`train/checkpoint.py:438-593`),
-restricted to the modules ported so far; `discriminator_state_dict_from_jax`
-is the inverse of its `import_torch_discriminator` (`:603-637`).
+package's `export_torch_generator` mapping (`train/checkpoint.py:438-593`)
+for every decoder head and for multi-speaker models, without the
+stochastic duration predictor; `discriminator_state_dict_from_jax` is the
+inverse of its `import_torch_discriminator` (`:603-637`).
 """
 
 from __future__ import annotations
@@ -61,7 +62,11 @@ def state_dict_from_jax(params: Mapping, cfg: ModelConfig
         put(dst + ".gamma", node(src)["gamma"])
         put(dst + ".beta", node(src)["beta"])
 
+    gin = cfg.gin_channels
+
     def wn_block(src, dst, n_layers):
+        if gin:
+            wn_conv(src + ("cond_layer",), f"{dst}.cond_layer")
         for i in range(n_layers):
             wn_conv(src + (f"in_layers_{i}",), f"{dst}.in_layers.{i}")
             wn_conv(src + (f"res_skip_layers_{i}",),
@@ -98,6 +103,8 @@ def state_dict_from_jax(params: Mapping, cfg: ModelConfig
         plain_conv(("dp", name), f"dp.{name}")
     layernorm(("dp", "norm_1"), "dp.norm_1")
     layernorm(("dp", "norm_2"), "dp.norm_2")
+    if gin:
+        plain_conv(("dp", "cond"), "dp.cond")
 
     trunk = ("dec", "trunk")
     wn_conv(trunk + ("conv_pre",), "dec.conv_pre")
@@ -112,7 +119,17 @@ def state_dict_from_jax(params: Mapping, cfg: ModelConfig
         for name in convs:
             for j in range(n_dil):
                 wn_conv(base + (f"{name}_{j}",), f"dec.resblocks.{i}.{name}.{j}")
-    wn_conv(("dec", "subband_conv_post"), "dec.subband_conv_post")
+        if "cond" in node(base):
+            plain_conv(base + ("cond",), f"dec.resblocks.{i}.cond")
+    kind = cfg.decoder_kind
+    if kind == "istft":
+        wn_conv(("dec", "conv_post"), "dec.conv_post")
+    else:
+        wn_conv(("dec", "subband_conv_post"), "dec.subband_conv_post")
+    if kind == "ms_istft":
+        wn_conv(("dec", "multistream_conv_post"), "dec.multistream_conv_post")
+    if cfg.n_speakers > 1:
+        put("emb_g.weight", node(("emb_g",))["embedding"])
     return sd
 
 

@@ -53,7 +53,8 @@ print(json.dumps({"modules": names, "bad": bad}))
     assert "mb_istft_vits_torch.models.synthesizer" in out["modules"]
     for name in ("synthesize", "synthesize_z", "batch_synthesize",
                  "serve.microbatch", "serve.streaming", "dsp.resample",
-                 "utils.audio", "infer.synthesis"):
+                 "utils.audio", "infer.synthesis", "text.jp",
+                 "voice_conversion"):
         assert f"mb_istft_vits_torch.{name}" in out["modules"]
 
 

@@ -27,7 +27,7 @@ from mb_istft_vits_torch.dsp import resample as port_rs
 from mb_istft_vits_torch.infer.synthesis import SynthesisModule
 from mb_istft_vits_torch.serve import IncrementalTTS, MicroBatcher, TTSRequest
 from mb_istft_vits_torch.serve.streaming import StreamResampler
-from torch_port_data import write_tiny_config
+from torch_port_data import MS_CONFIG, write_tiny_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEXT = "ðə kwˈɪk bɹˈaʊn fˈɑːks, dʒˈʌmps ˌoʊvɚ ðə lˈeɪzi dˈɑːɡ."
@@ -106,21 +106,28 @@ def test_serving_caches_hit(module):
 
 
 def test_raw_japanese_text_is_not_ported(module, monkeypatch):
+    """Uncleaned text of a Japanese config runs the config's cleaner,
+    `japanese_cleaners` (katakana in, phonemes out), where it used to
+    raise; the JAX package's pyopenjtalk route for raw kanji is not
+    carried by the port."""
     import dataclasses
 
     monkeypatch.setattr(module, "data_cfg", dataclasses.replace(
-        module.data_cfg, text_module="text_JP"))
-    with pytest.raises(NotImplementedError, match="Japanese"):
-        module.text_to_ids("こんにちは", cleaned=False)
+        module.data_cfg, text_module="text_JP",
+        text_cleaners=("japanese_cleaners",)))
+    ids = module.text_to_ids("コンニチハ", cleaned=False)
+    want = module.text_to_ids("k o N n i t i h a", cleaned=True)
+    np.testing.assert_array_equal(ids, want)
+    assert len(want) == 2 * 9 + 1  # nine phonemes, blanks interspersed
 
 
 def test_warmup_runs_each_bucket_pair(module, monkeypatch):
     seen = []
     infer = module._infer
 
-    def spy(x, x_lengths, ns, ls, max_frames, gen, out_sr=None):
+    def spy(x, x_lengths, sid, ns, ls, max_frames, gen, out_sr=None):
         seen.append((x.shape[1], max_frames))
-        return infer(x, x_lengths, ns, ls, max_frames, gen, out_sr)
+        return infer(x, x_lengths, sid, ns, ls, max_frames, gen, out_sr)
 
     monkeypatch.setattr(module, "_infer", spy)
     module.warmup(pairs=[(32, 64), (64, 128)])
@@ -388,8 +395,34 @@ def test_batch_synthesize_cli(tiny_config, tmp_path, capsys):
     assert "done: 3 utterances" in capsys.readouterr().out
 
 
+def test_voice_conversion_cli(tmp_path, capsys):
+    """`python -m mb_istft_vits_torch.voice_conversion` on the Japanese
+    multi-speaker config shrunk: a synthesized utterance of speaker 0,
+    re-spoken as speaker 5, keeps its length and changes; a wav at another
+    rate is refused."""
+    from mb_istft_vits_torch.utils.audio import write_wav
+    from mb_istft_vits_torch.voice_conversion import main
+
+    cfg = write_tiny_config(str(tmp_path), MS_CONFIG)
+    sm = SynthesisModule(cfg, seed=0, device="cpu")
+    audio, _ = sm.synthesize("k o N n i t i w a", 0, seed=1)
+    src, out = tmp_path / "src.wav", tmp_path / "out.wav"
+    write_wav(str(src), audio, 16000)
+    assert main(["-c", cfg, "-i", str(src), "--sid-src", "0", "--sid-tgt",
+                 "5", "-o", str(out), "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.startswith(f"wrote {out}")
+    sr, pcm = _wav(out)
+    _, pcm_src = _wav(src)
+    assert sr == 16000 and len(pcm) == len(pcm_src) > 0
+    assert not np.array_equal(pcm, pcm_src)
+    write_wav(str(src), audio, 22050)
+    with pytest.raises(SystemExit, match="16000"):
+        main(["-c", cfg, "-i", str(src), "--sid-src", "0", "--sid-tgt", "5",
+              "-o", str(out), "--device", "cpu"])
+
+
 @pytest.mark.parametrize("cli", ["synthesize", "synthesize_z",
-                                 "batch_synthesize"])
+                                 "batch_synthesize", "voice_conversion"])
 def test_cli_without_a_card_exits(tiny_config, tmp_path, cli):
     """Without --device cpu a CLI wants CUDA and, with no card, exits
     non-zero before writing anything."""
@@ -397,7 +430,10 @@ def test_cli_without_a_card_exits(tiny_config, tmp_path, cli):
     fl.write_text("x|" + SHORT[0] + "\n", encoding="utf-8")
     args = {"synthesize": ["-t", SHORT[0], "-o", str(tmp_path / "a.wav")],
             "synthesize_z": ["-t", SHORT[0], "-o", str(tmp_path)],
-            "batch_synthesize": ["-f", str(fl), "-o", str(tmp_path / "o")]}
+            "batch_synthesize": ["-f", str(fl), "-o", str(tmp_path / "o")],
+            "voice_conversion": ["-i", str(fl), "--sid-src", "0",
+                                 "--sid-tgt", "1", "-o",
+                                 str(tmp_path / "v.wav")]}
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""))

@@ -122,6 +122,43 @@ def test_fp16_run_step_keeps_float32_master_weights(tmp_path):
                    zip(before, state.net_g.parameters()))
 
 
+def test_cli_trains_a_japanese_multispeaker_config(tmp_path):
+    """`uudb_ms_istft_vits_ms.json` shrunk: `path|sid|text` phoneme rows of
+    six speakers, the MS-iSTFT head. The speaker embedding is trained, is
+    saved in G_*.pth, and comes back on resume; the sub-band loss is 0."""
+    from mb_istft_vits_torch.config import Config
+    from mb_istft_vits_torch.train import checkpoint
+    from mb_istft_vits_torch.train.step import create_train_state
+
+    cfg = write_tiny_dataset(str(tmp_path), multi_speaker=True)
+    first = run_cli(tmp_path, "-c", cfg, "-m", "ms", "--device", "cpu",
+                    "--max-steps", "2")
+    assert first.returncode == 0, first.stderr
+    second = run_cli(tmp_path, "-c", cfg, "-m", "ms", "--device", "cpu",
+                     "--max-steps", "3")
+    assert second.returncode == 0, second.stderr
+    assert "resumed from step 2" in second.stdout
+    metrics = {**step_metrics(first.stdout), **step_metrics(second.stdout)}
+    assert sorted(metrics) == [1, 2, 3]
+    assert all(m["loss/g/subband"] == 0.0 for m in metrics.values())
+    assert all(math.isfinite(v) for m in metrics.values()
+               for v in m.values())
+    model_dir = tmp_path / "logs" / "ms"
+    g2 = torch.load(model_dir / "G_2.pth", weights_only=True)["model"]
+    g3 = torch.load(model_dir / "G_3.pth", weights_only=True)["model"]
+    config = Config.from_json(cfg)
+    assert config.model.decoder_kind == "ms_istft"
+    init = create_train_state(config, torch.device("cpu"),
+                              config.train.seed).net_g
+    assert g2["emb_g.weight"].shape == (12, 8)
+    assert not torch.equal(g2["emb_g.weight"], init.emb_g.weight.detach())
+    assert not torch.equal(g3["emb_g.weight"], g2["emb_g.weight"])
+    state = create_train_state(config, torch.device("cpu"), 0)
+    os.remove(model_dir / "G_3.pth")  # resume from step 2
+    assert checkpoint.resume(str(model_dir), state) == 2
+    assert torch.equal(state.net_g.emb_g.weight.detach(), g2["emb_g.weight"])
+
+
 def test_cli_without_a_card_refuses_to_run(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
