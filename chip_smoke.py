@@ -32,7 +32,19 @@ Phases, one JSON line each:
            step, 4 timed steps, a profiled one; checks as `train`, plus
            loss/g/subband == 0 and emb_g's gradient on exactly the batch's
            speakers' rows; its step time over the flagship's
-  train_cli the training CLI at a shrunk width: 3 steps, then resumed to 5
+  train_sdp the flagship with the stochastic duration predictor (use_sdp,
+           upstream VITS's ljs_base.json setting) on the train phase's
+           batch: a first step, 3 timed steps, a profiled one, a bf16 one;
+           checks as `train`, plus a finite loss/g/dur and every dp.* weight
+           moved; its step and device time over the flagship's
+  eval_ms  the trainer's evaluate() once at full width on train_ms's
+           generator: 12 syntheses, copy synthesis, MCD / LSD / F0 and the
+           TTS DTW MCD; its seconds and scalars
+  train_cli the training CLI at a shrunk width, an eval and a pair every 2
+           steps: 10 steps, then --reset-optimizer to step 12 (evals in the
+           log, best.json, pruning to the newest 3 and the best, metrics
+           every log_interval, the epoch snap, fresh optimizers); then a
+           child CLI run stopped by SIGTERM (a pair, exit code 0)
   serve    flagship config, seeded random weights: warmup() of the default
            (text, frame) bucket pairs; 8 requests of filelist lines whose
            token counts warmup did not run (per request tokens, buckets,
@@ -55,10 +67,16 @@ Phases, one JSON line each:
   serve_istft the single-band iSTFT model (ljs_istft_vits.json):
            warmup(), 4 requests, one profiled, decode_spec_join
            (correlated > 0.98)
+  serve_sdp train_sdp's model: warmup(), 4 requests at noise_scale_w 0.8
+           (the probe's frames are the decode's, the bucket the smallest
+           that holds them), a seeded repeat (bit-equal), noise_scale_w 0
+           against 0.8 (other frames), a noise-free batch of 16 held to
+           single requests
 The serving phases run last, as the serving module pins cuDNN's
 deterministic algorithms for the process. Every phase's line carries its
 wall seconds. Then one {"kernels": [...]} line (launch counts from the
-forward, train, train_ms, train_cli and serving run, times, bounds;
+forward, train, train_sdp, train_ms, eval_ms, train_cli and serving run,
+times, bounds;
 `launches` counts the first
 kernel of a port and `launches_by_kernel` each of its kernels: mas_bwd is
 mas_bwd_kernel and mas_path_kernel), the card's name and power limit as
@@ -78,6 +96,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -117,6 +136,8 @@ SERVE_REQUESTS = 8  # new-text requests after warmup, micro-batch callers
 SERVE_BATCH = 16  # lines in the serve phase's synthesize_batch
 TRAIN_STEPS = 6  # timed train steps after the first
 TRAIN_MS_STEPS = 4  # the same, of the multi-speaker model
+TRAIN_SDP_STEPS = 3  # the same, of the flagship with the stochastic predictor
+SDP_REQUESTS = 4  # serve_sdp's requests at noise_scale_w 0.8
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 outside the
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -714,7 +735,6 @@ def phase_serve_ms():
     callers of 8 speakers (coalesced rows bit-equal to synthesize_batch of
     the same texts and speakers); voice conversion of a synthesized
     utterance, speaker 0 -> 5, through the CLI's main() in this process."""
-    import tempfile
     import threading
 
     import numpy as np
@@ -874,6 +894,114 @@ def phase_serve_istft():
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"serve_istft checks failed: {failed}")
+
+
+def phase_serve_sdp(root):
+    """Serving the flagship with the stochastic duration predictor
+    (train_sdp's config) at full width, seeded random weights: warmup();
+    SDP_REQUESTS FILELIST lines at noise_scale_w 0.8, each with the frame
+    bucket taken from the duration probe: the probe's frames are the
+    decode's and its bucket the smallest that holds them; a profiled
+    request (its bucket from the frames-per-token ratio); a seeded repeat
+    (bit-equal); noise_scale_w 0 against 0.8 on one text and seed (other
+    frames); synthesize_batch of SERVE_BATCH lines noise-free, each row
+    held against the same line as a single request (equal length,
+    correlated > 0.99)."""
+    import numpy as np
+
+    from mb_istft_vits_torch.infer.synthesis import SynthesisModule
+
+    sm = SynthesisModule(sdp_config(root), seed=0, device="cuda")
+    hop = sm.hop_length
+    checks = {}
+
+    def check(name, ok):
+        checks[name] = checks.get(name, True) and bool(ok)
+
+    t0 = time.perf_counter()
+    sm.warmup()
+    warmup_s = time.perf_counter() - t0
+
+    seen = {"probe": [], "decode": []}
+    model = sm.model
+    predict, infer = model.predict_frames, model.infer
+
+    def probe(*args, **kwargs):
+        out = predict(*args, **kwargs)
+        seen["probe"].append([int(v) for v in out])
+        return out
+
+    def decode(*args, **kwargs):
+        out = infer(*args, **kwargs)
+        seen["decode"].append((kwargs["max_frames"],
+                               [int(v) for v in out.y_lengths]))
+        return out
+
+    model.predict_frames, model.infer = probe, decode
+    try:
+        texts = _texts(SDP_REQUESTS)
+        requests = []
+        for i, text in enumerate(texts):
+            _fresh_bucket_state(sm)
+            seen["probe"].clear()
+            seen["decode"].clear()
+            audio, tm = sm.synthesize(text, noise_scale_w=0.8, seed=i)
+            frames = seen["probe"][0][0] if seen["probe"] else None
+            check("requests_finite", _wav_ok(audio)
+                  and audio.size % hop == 0)
+            check("probe_frames_are_the_decodes", len(seen["probe"]) == 1
+                  and all(y == [frames] for _, y in seen["decode"])
+                  and audio.size == frames * hop)
+            check("bucket_is_the_smallest_holding_them", seen["decode"]
+                  and seen["decode"][0][0] == sm._frame_bucket_capped(frames))
+            requests.append(dict(_request_row(sm, text, None, tm),
+                                 probe_frames=frames,
+                                 decodes=len(seen["decode"])))
+    finally:
+        del model.predict_frames, model.infer  # the class's methods again
+
+    profile = profile_call(
+        lambda: sm.synthesize(texts[1], noise_scale_w=0.8, seed=9))
+    repeat = []
+    for _ in range(2):
+        _fresh_bucket_state(sm)
+        repeat.append(sm.synthesize(texts[0], noise_scale_w=0.8, seed=0))
+    check("seeded_repeat_bit_equal",
+          repeat[0][1]["frame_bucket"] == repeat[1][1]["frame_bucket"]
+          and np.array_equal(repeat[0][0], repeat[1][0]))
+    _fresh_bucket_state(sm)
+    still, _ = sm.synthesize(texts[0], noise_scale_w=0.0, seed=0)
+    check("noise_scale_w_moves_the_frames", still.size != repeat[0][0].size)
+
+    batch_texts = _texts(SERVE_BATCH)
+    quiet = dict(noise_scale=0.0, noise_scale_w=0.0)
+    t0 = time.perf_counter()
+    rows, tm_batch = sm.synthesize_batch(batch_texts, **quiet)
+    batch_s = time.perf_counter() - t0
+    singles = []
+    for text in batch_texts:
+        _fresh_bucket_state(sm)
+        singles.append(sm.synthesize(text, **quiet)[0])
+    corrs = [_corr(a, b) for a, b in zip(rows, singles)]
+    check("batch_rows_hold_to_single_requests", len(rows) == SERVE_BATCH
+          and all(_wav_ok(a, b.size) for a, b in zip(rows, singles))
+          and all(c is not None and c > 0.99 for c in corrs))
+
+    emit("serve_sdp", config="configs/ljs_mb_istft_vits.json + use_sdp",
+         weights="random", noise_scale_w=0.8, warmup_seconds=warmup_s,
+         requests=requests,
+         median_rtf=statistics.median(r["rtf"] for r in requests),
+         profile_request=profile,
+         seeded_repeat_bucket=repeat[0][1]["frame_bucket"],
+         frames_noise_scale_w={"0.0": still.size // hop,
+                               "0.8": repeat[0][0].size // hop},
+         batch=dict(tm_batch, rows=len(rows), seconds=batch_s),
+         batch_row_corr_min=min(c for c in corrs if c is not None)
+         if any(c is not None for c in corrs) else None,
+         checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"serve_sdp checks failed: {failed}")
 
 
 def training_lengths(config, b, gen, texts=None):
@@ -1159,7 +1287,76 @@ def phase_train():
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"train checks failed: {failed}")
-    return statistics.median(run["steady"])
+    return statistics.median(run["steady"]), run["profile"]["device_ms"]
+
+
+def sdp_config(root):
+    """The flagship config with `model.use_sdp` true (upstream VITS's
+    `configs/ljs_base.json` setting), written under root; its path."""
+    with open(CONFIG) as f:
+        cfg = json.load(f)
+    cfg["model"]["use_sdp"] = True
+    path = os.path.join(root, "ljs_mb_istft_vits_sdp.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def phase_train_sdp(flagship, root):
+    """The flagship with the stochastic duration predictor, on the train
+    phase's batch and seeds: a first step, TRAIN_SDP_STEPS timed steps, a
+    profiled one (run_train_steps), then one with fp16_run. Checks the
+    training checks, a finite loss/g/dur (the predictor's flow NLL) and
+    that every dp.* weight moved; its median step and profiled device
+    time over the flagship's (the train phase's, in this run)."""
+    import dataclasses
+
+    import torch
+
+    from mb_istft_vits_torch.config import Config
+    from mb_istft_vits_torch.models.duration import (
+        StochasticDurationPredictor,
+    )
+    from mb_istft_vits_torch.train import step as tstep
+
+    step_ms, device_ms = flagship
+    config = Config.from_json(sdp_config(root))
+    config = dataclasses.replace(config, train=dataclasses.replace(
+        config.train, batch_size=BATCH))
+    state = tstep.create_train_state(config, torch.device("cuda"), seed=3)
+    batch = train_batch(config, BATCH, seed=4)
+    before = {k: v.detach().clone()
+              for k, v in state.net_g.dp.named_parameters()}
+    run = run_train_steps(state, batch, TRAIN_SDP_STEPS)
+    bf16 = dataclasses.replace(state, cfg=dataclasses.replace(
+        config, train=dataclasses.replace(config.train, fp16_run=True)))
+    bf16_metrics = {k: float(v) for k, v in
+                    tstep.train_step(bf16, batch).items()}
+    after = dict(state.net_g.dp.named_parameters())
+    still = sorted(k for k, v in before.items() if torch.equal(v, after[k]))
+    steps = [run["first"]] + run["steps"]
+    checks = dict(train_checks(run), **{
+        "stochastic_predictor": isinstance(state.net_g.dp,
+                                           StochasticDurationPredictor),
+        "loss_g_dur_finite": all(math.isfinite(s["metrics"]["loss/g/dur"])
+                                 for s in steps),
+        "every_dp_leaf_moved": len(before) > 100 and not still,
+        "fp16_run_finite": all(math.isfinite(v)
+                               for v in bf16_metrics.values()),
+    })
+    sdp_device_ms = run["profile"]["device_ms"]
+    emit("train_sdp", config="configs/ljs_mb_istft_vits.json + use_sdp",
+         batch=BATCH, **train_report(run, batch, config),
+         loss_g_dur=[s["metrics"]["loss/g/dur"] for s in steps],
+         dp_leaves=len(before), dp_leaves_unmoved=still,
+         metrics_fp16_run=bf16_metrics,
+         step_ms_over_flagship=statistics.median(run["steady"]) / step_ms,
+         device_ms_over_flagship=(sdp_device_ms / device_ms
+                                  if device_ms else None),
+         checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"train_sdp checks failed: {failed}")
 
 
 def ms_rows():
@@ -1221,31 +1418,76 @@ def phase_train_ms(flagship_step_ms):
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"train_ms checks failed: {failed}")
+    return state.net_g
+
+
+EVAL_SCALARS = ("mcd_copy_synthesis", "lsd_copy_synthesis", "f0_rmse_hz",
+                "voicing_decision_error", "mcd_tts_dtw", "dur_ratio_tts")
+
+
+def sigterm_child(cfg, cwd):
+    """The CLI in a child process on the card, to 500 steps: SIGTERM once
+    its first metrics line is out. Returns (exit code, its output, the
+    step it checkpointed at or None, seconds). The child is killed if it
+    has not exited within 300 s, so it never outlives this script."""
+    import signal
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mb_istft_vits_torch.train", "-c", cfg, "-m",
+         "term", "--max-steps", "500"], cwd=cwd, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if re.search(r"\bstep \d+: \{", line):
+                proc.send_signal(signal.SIGTERM)
+                break
+        lines.append(proc.communicate(timeout=300)[0])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = "".join(lines)
+    m = re.search(r"SIGTERM: checkpointed at step (\d+), exiting", out)
+    return (proc.returncode, out, int(m.group(1)) if m else None,
+            time.perf_counter() - t0)
 
 
 def phase_train_cli():
-    """The training CLI on the card (its main(), in this process, so its
-    MAS launches count): 3 steps at the shrunk width, on the CLI tests'
-    tiny dataset (tests/torch_port_data.py), then a second run that
-    resumes from step 3 to step 5."""
+    """The training CLI on the card at the shrunk width, on the CLI tests'
+    tiny dataset (tests/torch_port_data.py; 3 steps an epoch) with an
+    eval and a pair every 2 steps and a metrics line every 3. In this
+    process (its main(), so its MAS launches count): 10 steps, then a
+    resumed run with --reset-optimizer to step 12. Checks the evals'
+    scalars in the log, best.json naming a pair on disk, the pairs pruned
+    to the newest 3 and the best, the metrics lines, the epoch snap and
+    the fresh optimizers. Then a child run of the CLI: SIGTERM after its
+    first metrics line leaves a complete pair and exit code 0."""
     import math
-    import tempfile
 
+    import torch
+
+    from mb_istft_vits_torch.train import checkpoint
     from mb_istft_vits_torch.train.__main__ import main as train_main
 
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_port_data import write_tiny_dataset
 
     with tempfile.TemporaryDirectory() as root:
-        cfg = write_tiny_dataset(root)
+        cfg = write_tiny_dataset(root, eval_interval=2, log_interval=3)
         cwd = os.getcwd()
         os.chdir(root)  # the CLI writes to ./logs/NAME
         try:
             t0 = time.perf_counter()
             args = ["-c", cfg, "-m", "smoke"]  # CUDA, the CLI's default
-            rcs = [train_main(args + ["--max-steps", "3"])]
+            rcs = [train_main(args + ["--max-steps", "10"])]
             t1 = time.perf_counter()
-            rcs.append(train_main(args + ["--max-steps", "5"]))
+            rcs.append(train_main(args + ["--max-steps", "12",
+                                          "--reset-optimizer"]))
             t2 = time.perf_counter()
         finally:
             os.chdir(cwd)
@@ -1254,22 +1496,107 @@ def phase_train_cli():
             log = f.read()
         steps = {int(m.group(1)): json.loads(m.group(2)) for m in
                  re.finditer(r"step (\d+): (\{.*\})", log)}
-        checks = {
-            "exit_codes_zero": rcs == [0, 0],
-            "steps_1_to_5": sorted(steps) == [1, 2, 3, 4, 5],
-            "metrics_finite": all(math.isfinite(v) for m in steps.values()
-                                  for v in m.values()),
-            "resumed_from_step_3": "resumed from step 3" in log,
-            "checkpoints_written": all(
-                os.path.exists(os.path.join(model_dir, f"{p}_{s}.pth"))
-                for p in "GD" for s in (3, 5)),
-        }
+        evals = [{k: float(v) for k, v in re.findall(r"(\w+)=(\S+)", line)}
+                 for line in re.findall(r"eval: (\w+=.*)", log)]
+        with open(os.path.join(model_dir, checkpoint.BEST)) as f:
+            best = json.load(f)
+        pairs = checkpoint.saved_steps(model_dir)
+        g12 = torch.load(os.path.join(model_dir, "G_12.pth"),
+                         map_location="cpu", weights_only=True)
+        optim_steps = sorted({int(s["step"]) for s in
+                              g12["optimizer"]["state"].values()})
+        with open(cfg) as f:
+            lr0 = json.load(f)["train"]["learning_rate"]
+        rc_term, out_term, term_step, term_s = sigterm_child(cfg, root)
+        term_pairs = checkpoint.saved_steps(os.path.join(root, "logs",
+                                                         "term"))
+    checks = {
+        "exit_codes_zero": rcs == [0, 0],
+        # the first run's 3, 6, 9 and the second's 12 (log_interval 3)
+        "metrics_every_log_interval": sorted(steps) == [3, 6, 9, 12],
+        "metrics_finite": all(math.isfinite(v) for m in steps.values()
+                              for v in m.values()),
+        # steps 2, 4, .., 10, then 10 and 12 again
+        "eval_every_eval_interval": len(evals) == 7 and all(
+            sorted(e) == sorted(EVAL_SCALARS)
+            and all(math.isfinite(v) for v in e.values()) for e in evals),
+        "best_names_a_pair_on_disk": best["step"] in pairs
+        and float(f"{best['value']:.3f}") == min(
+            e["mcd_copy_synthesis"] for e in evals),
+        "pruned_to_newest_3_and_best":
+            pairs == sorted({8, 10, 12, best["step"]}),
+        "epoch_snap_logged": "resumed from step 10 (snapped to epoch "
+                             "boundary 9) (optimizer reset)" in log,
+        "reset_optimizer_fresh": optim_steps == [3]
+        and abs(steps.get(12, {}).get("learning_rate", 0) - lr0)
+        <= 1e-6 * lr0,
+        # the child's newest pair is the SIGTERM's (its evals save too)
+        "sigterm_exit_0_with_a_pair": rc_term == 0
+        and term_step is not None and term_pairs[-1:] == [term_step],
+    }
     emit("train_cli", seconds_first_run=t1 - t0, seconds_resumed_run=t2 - t1,
-         step_seconds={s: m["step_seconds"] for s, m in steps.items()},
+         steps_per_sec={s: m["steps_per_sec"] for s, m in steps.items()},
+         evals=evals, best=best, pairs=pairs, optimizer_steps_at_12=optim_steps,
+         sigterm={"exit_code": rc_term, "step": term_step, "pairs": term_pairs,
+                  "seconds": term_s, "tail": out_term[-600:]},
          checks=checks)
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"train_cli checks failed: {failed}")
+
+
+def phase_eval_ms(net_g):
+    """`train.loop.evaluate` once, at full width, on train_ms's generator
+    (uudb_ms_istft_vits_ms.json): a synthesis per speaker (12), the copy
+    synthesis of validation item 0 and the metrics. Its validation set is
+    seeded 16 kHz audio for the first MS_FILELIST row of each of 6
+    speakers (tests/torch_port_data.py). Reports the seconds and the
+    scalars: what one eval costs a user of that config."""
+    import logging
+    from unittest import mock
+
+    import numpy as np
+
+    from mb_istft_vits_torch.config import Config
+    from mb_istft_vits_torch.data import TextAudioDataset
+    from mb_istft_vits_torch.train.loop import evaluate
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_port_data import write_tiny_dataset
+
+    config = Config.from_json(MS_CONFIG)
+    logger = logging.getLogger("chip_smoke.eval_ms")
+    logger.propagate = False
+    with tempfile.TemporaryDirectory() as root:
+        tiny = Config.from_json(write_tiny_dataset(root, multi_speaker=True))
+        ds = TextAudioDataset(tiny.data.validation_files, config.data,
+                              seed=config.train.seed)
+        infer = net_g.infer
+        with mock.patch.object(net_g, "infer",
+                               side_effect=infer) as syntheses:
+            t0 = time.perf_counter()
+            evaluate(config, net_g, 0, logger, ds)  # first: every shape new
+            first_seconds = time.perf_counter() - t0
+            syntheses.reset_mock()
+            t0 = time.perf_counter()
+            scalars = evaluate(config, net_g, 1, logger, ds)
+            seconds = time.perf_counter() - t0
+        item_seconds = (np.asarray(ds[0]["wav"]).size
+                        / config.data.sampling_rate)
+    checks = {
+        "one_synthesis_per_speaker": syntheses.call_count == 12,
+        "scalars": sorted(k.split("/")[-1] for k in scalars or {})
+        == sorted(EVAL_SCALARS)
+        and all(math.isfinite(v) for v in scalars.values()),
+    }
+    emit("eval_ms", config=os.path.relpath(MS_CONFIG, REPO),
+         weights="train_ms's", speakers=config.data.n_speakers,
+         item_seconds=item_seconds, first_seconds=first_seconds,
+         seconds=seconds, scalars=scalars,
+         checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"eval_ms checks failed: {failed}")
 
 
 def main() -> int:
@@ -1289,14 +1616,20 @@ def main() -> int:
     # launched
     mas.reset_launch_counts()
     neg_cent, mask = run_phase(phase_forward)
-    flagship_step_ms = run_phase(phase_train)
-    run_phase(phase_train_ms, flagship_step_ms)
-    run_phase(phase_train_cli)
-    # last: the serving modules pin cuDNN's deterministic algorithms for
-    # the rest of the process
-    run_phase(phase_serve)
-    run_phase(phase_serve_ms)
-    run_phase(phase_serve_istft)
+    flagship = run_phase(phase_train)
+    with tempfile.TemporaryDirectory() as root:  # the SDP config
+        run_phase(phase_train_sdp, flagship, root)
+        net_ms = run_phase(phase_train_ms, flagship[0])
+        run_phase(phase_eval_ms, net_ms)
+        del net_ms
+        torch.cuda.empty_cache()
+        run_phase(phase_train_cli)
+        # last: the serving modules pin cuDNN's deterministic algorithms
+        # for the rest of the process
+        run_phase(phase_serve)
+        run_phase(phase_serve_ms)
+        run_phase(phase_serve_istft)
+        run_phase(phase_serve_sdp, root)
     launches = dict(mas.launch_counts)
     missing = [k for k, v in launches.items() if v == 0]
     if missing:

@@ -3,8 +3,9 @@
 A port of `mb_istft_vits_tpu` that keeps that package's behaviour and
 public layouts and never imports it (nor JAX). What is ported so far:
 
-  - every shipped config but `use_sdp`: the multi-band, single-band and
-    multi-stream iSTFT heads, the English and Japanese frontends,
+  - every shipped config and `use_sdp`: the multi-band, single-band and
+    multi-stream iSTFT heads, the deterministic and the stochastic
+    duration predictors, the English and Japanese frontends,
     multi-speaker models and voice conversion (`python -m
     mb_istft_vits_torch.voice_conversion`)
   - serving (`infer.synthesis.SynthesisModule`): text -> waveform
@@ -18,7 +19,9 @@ public layouts and never imports it (nor JAX). What is ported so far:
     generator forward a step, whose Monotonic Alignment Search runs in
     hand-written CUDA kernels (`csrc/mas.cu`, bound in `kernels.py`,
     dispatched by `ops/mas.py`), a discriminator step, then a generator
-    step against the updated discriminator
+    step against the updated discriminator; the CLI evaluates at
+    `eval_interval` (`utils.metrics`), keeps the best-by-eval checkpoint,
+    prunes the rest and checkpoints on SIGTERM
 
 Modules run in torch's [B, C, T] layout inside; the public `Synthesizer`
 methods take and return the JAX package's [B, T, C] layouts. Entry points

@@ -11,14 +11,15 @@ batcher (counterpart of `mb_istft_vits_tpu/data/dataset.py`; reference
 
 Batches carry int16 PCM only; the trainer computes the linear
 spectrogram on the device (`train.step.prep_batch`). The host-side
-`.spec` cache is not ported yet.
+`.spec` cache is not ported yet. `data.prefetch` assembles batches on
+loader threads and copies them to the card ahead of the step.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 from scipy.io import wavfile
@@ -123,12 +124,14 @@ class TextAudioDataset:
 
 class BucketedBatcher:
     """Static-shape, length-bucketed, epoch-seeded batches (replaces
-    DistributedBucketSampler, data_utils.py:308-404, for one process)."""
+    DistributedBucketSampler, data_utils.py:308-404, for one process).
+    `boundaries` are the spectrogram-frame bucket edges."""
 
-    def __init__(self, dataset: TextAudioDataset, batch_size: int):
+    def __init__(self, dataset: TextAudioDataset, batch_size: int,
+                 boundaries: Sequence[int] = BOUNDARIES):
         self.dataset = dataset
         self.batch_size = batch_size
-        self.boundaries = list(BOUNDARIES)
+        self.boundaries = list(boundaries)
         self.text_cap = dataset.text_id_cap
         self.buckets: List[List[int]] = [
             [] for _ in range(len(self.boundaries) - 1)]

@@ -21,6 +21,12 @@ Speakers: on a multi-speaker model every route conditions on its `sid`
 JAX package. Raw (not pre-cleaned) Japanese text runs the config's
 cleaners, which take katakana.
 
+Durations: with the stochastic duration predictor (`use_sdp`) every
+route samples them at `noise_scale_w`. A request draws the predictor's
+noise once, first from its generator, and hands the same draw to the
+frame-bucket probe and to the decode (the JAX package passes one key to
+both programs), so the probe's frames are the decode's.
+
 Not ported: the serving mesh (`mesh`, `_shard_to_mesh`), the AOT
 executable cache (`aot_cache_dir`), `compute_dtype` other than f32 and
 Orbax checkpoints (the port reads reference `.pth` files).
@@ -187,23 +193,40 @@ class SynthesisModule:
             return self._generator
         return torch.Generator(self.device).manual_seed(int(seed))
 
+    def _draws(self, x: torch.Tensor, seed: Optional[int]
+               ) -> Tuple[torch.Generator, Optional[torch.Tensor]]:
+        """(generator, w_eps) of one request on the padded ids x [B, T_x]:
+        the stochastic duration predictor's noise [B, T_x, 2] is the
+        generator's first draw (None without that predictor), the prior's
+        noise comes after it. A seeded request gets the same pair on every
+        call."""
+        gen = self._rng(seed)
+        if not self.cfg.use_sdp:
+            return gen, None
+        return gen, torch.randn((x.shape[0], x.shape[1], 2), generator=gen,
+                                device=self.device)
+
     # ------------------------------------------------------------------
     # model calls
     # ------------------------------------------------------------------
-    def _predict_frames(self, x, x_lengths, sid, length_scale
-                        ) -> torch.Tensor:
+    def _predict_frames(self, x, x_lengths, sid, length_scale,
+                        noise_scale_w, w_eps) -> torch.Tensor:
         with torch.no_grad():
-            return self.model.predict_frames(x, x_lengths, sid,
-                                             length_scale=length_scale)
+            return self.model.predict_frames(
+                x, x_lengths, sid, length_scale=length_scale,
+                noise_scale_w=noise_scale_w, w_eps=w_eps)
 
     def _infer(self, x, x_lengths, sid, noise_scale, length_scale,
-               max_frames, generator, out_sr: Optional[int] = None):
+               noise_scale_w, max_frames, generator, w_eps,
+               out_sr: Optional[int] = None):
         """sid: device ids [B] or None -> (InferOutput, int16 PCM
         [B, T_wav(out_sr)] on the device)."""
         with torch.no_grad():
             out = self.model.infer(x, x_lengths, sid, noise_scale=noise_scale,
                                    length_scale=length_scale,
-                                   max_frames=max_frames, generator=generator)
+                                   noise_scale_w=noise_scale_w,
+                                   max_frames=max_frames, w_eps=w_eps,
+                                   generator=generator)
             o = out.o
             if out_sr is not None and out_sr != self.sampling_rate:
                 o = resample_poly_torch(o, self.sampling_rate, out_sr)
@@ -278,11 +301,12 @@ class SynthesisModule:
         decode runs at it."""
         return min(_next_bucket(n, self.FRAME_BUCKETS), self.MAX_FRAMES)
 
-    def _frames_bucket(self, x, x_lengths, sid, length_scale) -> int:
+    def _frames_bucket(self, x, x_lengths, sid, length_scale, noise_scale_w,
+                       w_eps) -> int:
         """Exact output-frame bucket from the duration probe (text
-        encoder + duration predictor only)."""
-        frames = int(self._predict_frames(x, x_lengths, sid,
-                                          length_scale)[0])
+        encoder + duration predictor only), under the decode's `w_eps`."""
+        frames = int(self._predict_frames(x, x_lengths, sid, length_scale,
+                                          noise_scale_w, w_eps)[0])
         return self._frame_bucket_capped(frames)
 
     def warmup(self, pairs: Optional[Sequence[Tuple[int, int]]] = None
@@ -303,8 +327,9 @@ class SynthesisModule:
         for tb, fb in pairs:
             x = self._to_device(np.ones((1, tb), np.int64))
             xl = self._to_device(np.asarray([tb], np.int64))
-            self._predict_frames(x, xl, sid, 1.0)
-            _, pcm = self._infer(x, xl, sid, 0.667, 1.0, fb, self._rng(0))
+            gen, w_eps = self._draws(x, 0)
+            self._predict_frames(x, xl, sid, 1.0, 0.8, w_eps)
+            _, pcm = self._infer(x, xl, sid, 0.667, 1.0, 0.8, fb, gen, w_eps)
         if pcm is not None:
             self._fetch([pcm[:, :1]])()  # sync: every shape has run
 
@@ -328,9 +353,9 @@ class SynthesisModule:
 
     def synthesize(self, text: str, sid: Optional[int] = None, **kwargs):
         """-> (float32 audio on the int16 grid [y_len * hop], timings) of
-        speaker `sid`. Keywords: noise_scale, length_scale, noise_scale_w,
-        cleaned, seed. The ported model has the deterministic duration
-        predictor, so `noise_scale_w` changes nothing."""
+        speaker `sid`. Keywords: noise_scale, length_scale, noise_scale_w
+        (the stochastic duration predictor's noise; no effect on a model
+        with the deterministic one), cleaned, seed."""
         audio, _, timings = self._synthesize_impl(text, sid, want_z=False,
                                                   **kwargs)
         return audio, timings
@@ -376,18 +401,21 @@ class SynthesisModule:
         sid_arr = self._sid_rows(1, sid)
         t0 = time.perf_counter()
         t_frontend = t0 - t_start
+        gen, w_eps = self._draws(x, seed)
 
         if self._ratio_observed:
             est = int(len(ids) * self._frames_per_token * length_scale) + 16
             bucket = self._frame_bucket_capped(est)
         else:
-            bucket = self._frames_bucket(x, x_lengths, sid_arr, length_scale)
+            bucket = self._frames_bucket(x, x_lengths, sid_arr, length_scale,
+                                         noise_scale_w, w_eps)
         t_dispatch = 0.0
         t_sync = 0.0
         while True:
             td = time.perf_counter()
             out, pcm16 = self._infer(x, x_lengths, sid_arr, noise_scale,
-                                     length_scale, bucket, self._rng(seed))
+                                     length_scale, noise_scale_w, bucket,
+                                     gen, w_eps)
             fetch = [pcm16[0], out.y_lengths]
             if want_z:
                 fetch.append(out.latents[0][0])
@@ -400,6 +428,8 @@ class SynthesisModule:
             if y_len < bucket or bucket >= self.MAX_FRAMES:
                 break
             bucket = self._frame_bucket_capped(int(bucket * 3 / 2))
+            if seed is not None:  # the same draws again, at the new bucket
+                gen, w_eps = self._draws(x, seed)
         # EMA toward 1.2x the observed ratio, floored at 1.1x so an
         # underestimate (a second decode) stays rare
         ratio = y_len / max(len(ids) * length_scale, 1)
@@ -510,13 +540,15 @@ class SynthesisModule:
         ids = self.text_to_ids(text, cleaned)
         x, x_lengths = self._pad_ids_cached(ids)
         sid_arr = self._sid_rows(1, sid)
-        bucket = self._frames_bucket(x, x_lengths, sid_arr, length_scale)
+        gen, w_eps = self._draws(x, seed)
+        bucket = self._frames_bucket(x, x_lengths, sid_arr, length_scale,
+                                     noise_scale_w, w_eps)
         while True:
             with torch.no_grad():
                 attn, _, y_lengths, (z, *_) = self.model.infer_z_only(
                     x, x_lengths, sid_arr, noise_scale=noise_scale,
-                    length_scale=length_scale, max_frames=bucket,
-                    generator=self._rng(seed))
+                    length_scale=length_scale, noise_scale_w=noise_scale_w,
+                    max_frames=bucket, w_eps=w_eps, generator=gen)
             fetch = [z[0], y_lengths]
             if return_durations:
                 fetch.append(attn[0].sum(dim=0))
@@ -525,6 +557,8 @@ class SynthesisModule:
             if y_len < bucket or bucket >= self.MAX_FRAMES:
                 break
             bucket = self._frame_bucket_capped(int(bucket * 3 / 2))
+            if seed is not None:
+                gen, w_eps = self._draws(x, seed)
         z = host[0][:y_len]
         if return_durations:
             return z, y_len, sid, host[2][: len(ids)]  # w: [T_x] frames
@@ -958,14 +992,17 @@ class SynthesisModule:
             for i, s in enumerate((sids or [])[:n]):
                 rows[i] = 0 if s is None else int(s)
             sid_arr = self._to_device(rows)
-        frames = self._predict_frames(x, x_lengths, sid_arr, length_scale)
+        gen, w_eps = self._draws(x, seed)
+        frames = self._predict_frames(x, x_lengths, sid_arr, length_scale,
+                                      noise_scale_w, w_eps)
         # capped like the single-request path: one out-of-distribution
         # row must not size the whole batch's decode without bound
         bucket = self._frame_bucket_capped(int(frames.max()))
         out_sr = (None if out_sample_rate in (None, self.sampling_rate)
                   else int(out_sample_rate))
         out, pcm16 = self._infer(x, x_lengths, sid_arr, noise_scale,
-                                 length_scale, bucket, self._rng(seed), out_sr)
+                                 length_scale, noise_scale_w, bucket, gen,
+                                 w_eps, out_sr)
         pcm_host, y_lens = self._fetch([pcm16, out.y_lengths])()
         wavs = pcm_host.astype(np.float32) / 32767.0
         sr_out = out_sr or self.sampling_rate

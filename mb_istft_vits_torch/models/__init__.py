@@ -8,7 +8,10 @@ from mb_istft_vits_torch.models.discriminator import (  # noqa: F401
     DiscriminatorS,
     MultiPeriodDiscriminator,
 )
-from mb_istft_vits_torch.models.duration import DurationPredictor  # noqa: F401
+from mb_istft_vits_torch.models.duration import (  # noqa: F401
+    DurationPredictor,
+    StochasticDurationPredictor,
+)
 from mb_istft_vits_torch.models.encoders import (  # noqa: F401
     PosteriorEncoder,
     TextEncoder,

@@ -10,11 +10,12 @@ and take JAX's parameters in JAX's positional order.
 
 Randomness is explicit: `forward`, `fake_slice`, `reconstruct` and
 `voice_conversion` take the posterior noise and the slice starts, `infer`
-the prior noise `eps`, as keyword-only tensors; whatever is not given is
-drawn from the keyword-only `generator`.
-
-Not ported yet: the stochastic duration predictor; `noise_scale_w`, its
-knob, is accepted and has no effect.
+the prior noise `eps`, as keyword-only tensors; a model with the
+stochastic duration predictor (`use_sdp`) also takes its noise, `sdp_eps`
+in `forward` and `w_eps` (scaled by `noise_scale_w`) in `predict_frames`
+and the inference methods. Whatever is not given is drawn from the
+keyword-only `generator`, `w_eps` before `eps`, as the JAX package's
+first "noise" draw in `infer` is the predictor's.
 """
 
 from __future__ import annotations
@@ -31,7 +32,10 @@ from mb_istft_vits_torch.models.decoders import (
     MultibandISTFTGenerator,
     MultistreamISTFTGenerator,
 )
-from mb_istft_vits_torch.models.duration import DurationPredictor
+from mb_istft_vits_torch.models.duration import (
+    DurationPredictor,
+    StochasticDurationPredictor,
+)
 from mb_istft_vits_torch.models.encoders import PosteriorEncoder, TextEncoder
 from mb_istft_vits_torch.nn.flows import Flip, ResidualCouplingLayer
 from mb_istft_vits_torch.ops import (
@@ -122,15 +126,12 @@ class InferOutput(NamedTuple):
 
 class Synthesizer(nn.Module):
     """SynthesizerTrn equivalent (reference models.py:568-798) with the
-    deterministic duration predictor, any of the three decoder heads, and
-    a speaker embedding `emb_g` when the model has more than one
-    speaker."""
+    deterministic or (`use_sdp`) the stochastic duration predictor, any of
+    the three decoder heads, and a speaker embedding `emb_g` when the
+    model has more than one speaker."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.use_sdp:
-            raise NotImplementedError(
-                "the stochastic duration predictor is not ported yet")
         self.cfg = cfg
         gin = cfg.gin_channels
         self.enc_p = TextEncoder(
@@ -151,8 +152,12 @@ class Synthesizer(nn.Module):
         self.flow = ResidualCouplingBlock(cfg.inter_channels,
                                           cfg.hidden_channels, 5, 1, 4,
                                           gin_channels=gin)
-        self.dp = DurationPredictor(cfg.hidden_channels, 256, 3, 0.5,
-                                    gin_channels=gin)
+        if cfg.use_sdp:
+            self.dp = StochasticDurationPredictor(cfg.hidden_channels, 192, 3,
+                                                  0.5, 4, gin_channels=gin)
+        else:
+            self.dp = DurationPredictor(cfg.hidden_channels, 256, 3, 0.5,
+                                        gin_channels=gin)
         if cfg.n_speakers > 1:
             self.emb_g = nn.Embedding(cfg.n_speakers, gin)
 
@@ -198,11 +203,13 @@ class Synthesizer(nn.Module):
         *,
         posterior_eps: Optional[torch.Tensor] = None,
         ids_slice: Optional[torch.Tensor] = None,
+        sdp_eps: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         mas_force: str = "auto",
     ):
         """x [B, T_x] ids, y [B, T_y, spec] linear spectrogram, sid [B]
-        speaker ids, posterior_eps [B, T_y, C]. Dropout follows
+        speaker ids, posterior_eps [B, T_y, C], sdp_eps [B, T_x, 2] (the
+        stochastic duration predictor's posterior noise). Dropout follows
         `self.training` (`train`, if given, must agree). mas_force is
         `ops.mas.maximum_path(force=)`: "auto" takes the fused kernel
         whenever its shared memory fits, which on an H100 is every
@@ -232,10 +239,16 @@ class Synthesizer(nn.Module):
         # duration target and loss in float32 (train_latest.py:190,205)
         w = attn32.sum(dim=1, keepdim=True)  # [B, 1, T_x]
         x_mask32 = x_mask.float()
-        logw_ = torch.log(w + 1e-6) * x_mask32
-        logw = self.dp(h, x_mask, g).float()
-        l_length = torch.sum((logw - logw_) ** 2, dim=(1, 2)) / torch.sum(
-            x_mask32)
+        if cfg.use_sdp:
+            l_length = self.dp(
+                h, x_mask, w.to(h.dtype), g,
+                noise=None if sdp_eps is None else _cl(sdp_eps),
+                generator=generator).float() / torch.sum(x_mask32)
+        else:
+            logw_ = torch.log(w + 1e-6) * x_mask32
+            logw = self.dp(h, x_mask, g).float()
+            l_length = torch.sum((logw - logw_) ** 2, dim=(1, 2)) / torch.sum(
+                x_mask32)
 
         # expand the prior over frames (reference models.py:690-691)
         m_p = torch.matmul(m_p, _cl(attn))
@@ -276,20 +289,31 @@ class Synthesizer(nn.Module):
     # ------------------------------------------------------------------
     # inference (reference models.py:697-737)
     # ------------------------------------------------------------------
-    def _duration_head(self, x, x_lengths, sid, length_scale):
+    def _duration_head(self, x, x_lengths, sid, length_scale, noise_scale_w,
+                       w_eps, generator):
         """Text encoder + duration predictor + ceil: the one definition of
-        predicted durations, shared by `predict_frames` and `infer`."""
+        predicted durations, shared by `predict_frames` and `infer`. The
+        stochastic predictor samples its durations from `w_eps`
+        [B, T_x, 2] (drawn from `generator` when None) scaled by
+        `noise_scale_w`; the serving probe and the decode agree only when
+        they are handed the same `w_eps`."""
         h, m_p, logs_p, x_mask = self.enc_p(x, x_lengths)
         g = self._speaker(sid)
-        logw = self.dp(h, x_mask, g)
+        if self.cfg.use_sdp:
+            logw = self.dp(h, x_mask, g=g, reverse=True,
+                           noise_scale=noise_scale_w,
+                           noise=None if w_eps is None else _cl(w_eps),
+                           generator=generator)
+        else:
+            logw = self.dp(h, x_mask, g)
         w_ceil = torch.ceil(torch.exp(logw) * x_mask * length_scale)
         y_lengths = torch.clamp(torch.sum(w_ceil, dim=(1, 2)), min=1.0)
         return m_p, logs_p, x_mask, g, w_ceil, y_lengths.to(torch.int32)
 
     def _infer_latents(self, x, x_lengths, sid, noise_scale, length_scale,
-                       max_frames, eps, generator):
+                       noise_scale_w, max_frames, eps, w_eps, generator):
         m_p, logs_p, x_mask, g, w_ceil, y_lengths = self._duration_head(
-            x, x_lengths, sid, length_scale)
+            x, x_lengths, sid, length_scale, noise_scale_w, w_eps, generator)
         if max_frames is None:
             max_frames = int(y_lengths.max())
         y_lengths = torch.clamp(y_lengths, max=max_frames)
@@ -310,10 +334,15 @@ class Synthesizer(nn.Module):
     def predict_frames(self, x: torch.Tensor, x_lengths: torch.Tensor,
                        sid: Optional[torch.Tensor] = None,
                        length_scale: float = 1.0,
-                       noise_scale_w: float = 1.0) -> torch.Tensor:
+                       noise_scale_w: float = 1.0, *,
+                       w_eps: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
         """Total predicted frames per utterance [B] (text encoder +
-        duration predictor only)."""
-        return self._duration_head(x, x_lengths, sid, length_scale)[-1]
+        duration predictor only); `infer` under the same `w_eps` decodes
+        exactly these."""
+        return self._duration_head(x, x_lengths, sid, length_scale,
+                                   noise_scale_w, w_eps, generator)[-1]
 
     def infer(
         self,
@@ -326,14 +355,17 @@ class Synthesizer(nn.Module):
         max_frames: Optional[int] = 1000,
         *,
         eps: Optional[torch.Tensor] = None,
+        w_eps: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> InferOutput:
         """Text -> waveform. `max_frames` bounds the output frames as in the
         JAX package; None sizes it to the longest predicted utterance.
-        `eps` [B, max_frames, C] is the prior noise."""
+        `eps` [B, max_frames, C] is the prior noise, `w_eps` [B, T_x, 2]
+        the stochastic duration predictor's."""
         z, z_p, m_p, logs_p, attn, y_mask, y_lengths, g = \
             self._infer_latents(x, x_lengths, sid, noise_scale, length_scale,
-                                max_frames, eps, generator)
+                                noise_scale_w, max_frames, eps, w_eps,
+                                generator)
         o, o_mb, spec, phase = self._decode(z * y_mask, g)
         return InferOutput(o, o_mb, spec, phase, attn, _cl(y_mask), y_lengths,
                            tuple(_cl(t) for t in (z, z_p, m_p, logs_p)))
@@ -349,13 +381,15 @@ class Synthesizer(nn.Module):
         max_frames: Optional[int] = 1000,
         *,
         eps: Optional[torch.Tensor] = None,
+        w_eps: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ):
         """Latents only: (attn, y_mask, y_lengths, (z, z_p, m_p, logs_p))
         (reference models.py:742-788)."""
         z, z_p, m_p, logs_p, attn, y_mask, y_lengths, _ = \
             self._infer_latents(x, x_lengths, sid, noise_scale, length_scale,
-                                max_frames, eps, generator)
+                                noise_scale_w, max_frames, eps, w_eps,
+                                generator)
         return (attn, _cl(y_mask), y_lengths,
                 tuple(_cl(t) for t in (z, z_p, m_p, logs_p)))
 

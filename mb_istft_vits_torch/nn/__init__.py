@@ -3,9 +3,17 @@ from mb_istft_vits_torch.nn.attention import (  # noqa: F401
     MultiHeadAttention,
     TransformerEncoder,
 )
-from mb_istft_vits_torch.nn.blocks import WN, ResBlock1, ResBlock2  # noqa: F401
+from mb_istft_vits_torch.nn.blocks import (  # noqa: F401
+    WN,
+    DDSConv,
+    ResBlock1,
+    ResBlock2,
+)
 from mb_istft_vits_torch.nn.flows import (  # noqa: F401
+    ConvFlow,
+    ElementwiseAffine,
     Flip,
+    Log,
     ResidualCouplingLayer,
     flip_channels,
 )

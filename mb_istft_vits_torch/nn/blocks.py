@@ -1,6 +1,7 @@
-"""Composite conv blocks: gated WaveNet (WN) and HiFi-GAN ResBlocks
-(counterpart of `mb_istft_vits_tpu/nn/blocks.py`; reference
-`modules.py:111-262`). All on [B, C, T] with masks [B, 1, T].
+"""Composite conv blocks: the dilated depth-separable stack (DDSConv),
+gated WaveNet (WN) and HiFi-GAN ResBlocks (counterpart of
+`mb_istft_vits_tpu/nn/blocks.py`; reference `modules.py:70-262`). All on
+[B, C, T] with masks [B, 1, T].
 
 Global (speaker) conditioning g is [B, gin, 1]. WN adds it through one
 weight-normed `cond_layer` that serves every layer; each ResBlock adds it
@@ -14,8 +15,50 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from mb_istft_vits_torch.nn.layers import Conv1d, get_padding, leaky_relu
+from mb_istft_vits_torch.nn.layers import (
+    Conv1d,
+    LayerNorm,
+    get_padding,
+    leaky_relu,
+)
+
+
+class DDSConv(nn.Module):
+    """Dilated depth-separable conv stack of the stochastic duration
+    predictor (reference modules.py:70-108): per layer a depthwise conv
+    (dilation kernel_size ** i), LayerNorm, exact GELU, a 1x1 conv,
+    LayerNorm, GELU, dropout, added back to x. g [B, C, T] (a conditioning
+    signal of x's shape) is added to the input first."""
+
+    def __init__(self, channels: int, kernel_size: int, n_layers: int,
+                 p_dropout: float = 0.0):
+        super().__init__()
+        self.convs_sep = nn.ModuleList()
+        self.convs_1x1 = nn.ModuleList()
+        self.norms_1 = nn.ModuleList()
+        self.norms_2 = nn.ModuleList()
+        for i in range(n_layers):
+            dilation = kernel_size ** i
+            self.convs_sep.append(Conv1d(
+                channels, channels, kernel_size, dilation=dilation,
+                groups=channels, padding=get_padding(kernel_size, dilation)))
+            self.convs_1x1.append(Conv1d(channels, channels, 1))
+            self.norms_1.append(LayerNorm(channels))
+            self.norms_2.append(LayerNorm(channels))
+        self.drop = nn.Dropout(p_dropout)
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if g is not None:
+            x = x + g
+        for sep, norm_1, conv_1x1, norm_2 in zip(
+                self.convs_sep, self.norms_1, self.convs_1x1, self.norms_2):
+            y = F.gelu(norm_1(sep(x * x_mask)))
+            y = self.drop(F.gelu(norm_2(conv_1x1(y))))
+            x = x + y
+        return x * x_mask
 
 
 class WN(nn.Module):

@@ -10,7 +10,9 @@ One step, in the reference's own order:
   4. generator step against the updated discriminator:
      gen + fm + mel * c_mel + dur + kl * c_kl + sub-band MR-STFT (the
      multi-band head only; 0 for the others), gradients value-clipped at
-     `grad_clip_value`, AdamW
+     `grad_clip_value`, AdamW; dur is the stochastic duration
+     predictor's flow NLL when `use_sdp`, computed under the autocast
+     like the rest of G and taken in float32, as in JAX
   5. lr = lr0 * lr_decay ^ (step // steps_per_epoch), taken at the step
      count before the increment
 
@@ -47,18 +49,23 @@ WEIGHT_DECAY = 0.01  # torch.optim.AdamW's default (train_latest.py:103-112)
 
 class StepDraws(NamedTuple):
     """The random draws of one step, shared by both halves: the posterior
-    noise [B, T_spec, inter_channels] and the decode slice's start frames
-    [B] int32."""
+    noise [B, T_spec, inter_channels], the decode slice's start frames
+    [B] int32 and, for a model with the stochastic duration predictor,
+    its posterior noise [B, T_x, 2] (None: drawn from the step's
+    generator)."""
 
     posterior_eps: torch.Tensor
     ids_slice: torch.Tensor
+    sdp_eps: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
 class TrainState:
     """Generator, discriminator, their optimizers and the step count. The
     draws of step n come from a generator seeded by (seed, n), so a
-    resumed run repeats them."""
+    resumed run repeats them. The lr schedule runs on the optimizers' own
+    step count, `step - lr_offset`: `lr_offset` is 0 unless the
+    optimizers were reset on resume (`train.checkpoint.resume`)."""
 
     cfg: Config
     net_g: Synthesizer
@@ -67,10 +74,15 @@ class TrainState:
     optim_d: torch.optim.AdamW
     seed: int
     step: int = 0
+    lr_offset: int = 0
 
     @property
     def device(self) -> torch.device:
         return next(self.net_g.parameters()).device
+
+    def learning_rate(self) -> float:
+        """The lr of the next step."""
+        return make_lr_schedule(self.cfg.train)(self.step - self.lr_offset)
 
     def step_generator(self) -> torch.Generator:
         return torch.Generator(self.device).manual_seed(
@@ -159,11 +171,12 @@ def g_forward(state: TrainState, batch: Dict[str, torch.Tensor],
               draws: Optional[StepDraws] = None):
     """The step's one generator forward (`Synthesizer.forward`'s tuple);
     without `draws`, they come from the step's generator."""
-    eps, ids_slice = (None, None) if draws is None else draws
+    draws = draws or StepDraws(None, None)
     with _autocast(state):
         return state.net_g(batch["x"], batch["x_lengths"], batch["spec"],
                            batch["spec_lengths"], batch.get("sid"),
-                           posterior_eps=eps, ids_slice=ids_slice,
+                           posterior_eps=draws.posterior_eps,
+                           ids_slice=draws.ids_slice, sdp_eps=draws.sdp_eps,
                            generator=state.step_generator())
 
 
@@ -186,8 +199,7 @@ def d_step(state: TrainState, y: torch.Tensor, y_hat: torch.Tensor
     loss_disc.backward()
     params = list(state.net_d.parameters())
     grad_norm_d = _global_norm(params)
-    optimizer_step(state.optim_d, params,
-                   make_lr_schedule(state.cfg.train)(state.step))
+    optimizer_step(state.optim_d, params, state.learning_rate())
     return {"loss/d/total": loss_disc.detach(), "grad_norm_d": grad_norm_d}
 
 
@@ -234,7 +246,7 @@ def g_step(state: TrainState, batch, out, y: torch.Tensor
     total.backward()
     params = list(state.net_g.parameters())
     grad_norm_g = _global_norm(params)
-    optimizer_step(state.optim_g, params, make_lr_schedule(t)(state.step),
+    optimizer_step(state.optim_g, params, state.learning_rate(),
                    t.grad_clip_value)
     metrics = {"loss/g/total": total.detach()}
     metrics.update({k: v.detach() for k, v in losses.items()})
@@ -255,7 +267,6 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     y = real_slice(state, batch, out[4])
     metrics = d_step(state, y, out[0].transpose(1, 2))
     metrics.update(g_step(state, batch, out, y))
-    metrics["learning_rate"] = torch.tensor(
-        make_lr_schedule(state.cfg.train)(state.step))
+    metrics["learning_rate"] = torch.tensor(state.learning_rate())
     state.step += 1
     return metrics

@@ -5,13 +5,19 @@ The port's modules carry the reference `SynthesizerTrn` and
 `MultiPeriodDiscriminator` state-dict names, so a reference checkpoint
 loads as it is. `state_dict_from_jax` is the port's own copy of the JAX
 package's `export_torch_generator` mapping (`train/checkpoint.py:438-593`)
-for every decoder head and for multi-speaker models, without the
-stochastic duration predictor; `discriminator_state_dict_from_jax` is the
-inverse of its `import_torch_discriminator` (`:603-637`).
+for every decoder head, multi-speaker models and the stochastic duration
+predictor; `discriminator_state_dict_from_jax` is the inverse of its
+`import_torch_discriminator` (`:603-637`).
+
+The stochastic duration predictor's `ElementwiseAffine` parameters
+(`dp.flows.0.m`, `dp.post_flows.0.logs`, ...) are [2, 1] in the reference
+and in the port; the JAX exporter writes them as (2,), so
+`load_generator_pth` reshapes those.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -22,6 +28,8 @@ from mb_istft_vits_torch.config import ModelConfig
 # reference buffers the port rebuilds in its constructors
 _REBUILT_BUFFERS = ("stft.window", "updown_filter", "analysis_filter",
                     "synthesis_filter")
+# the stochastic duration predictor's ElementwiseAffine parameters
+_AFFINE = re.compile(r"dp\.(post_)?flows\.0\.(m|logs)")
 
 
 def state_dict_from_jax(params: Mapping, cfg: ModelConfig
@@ -99,10 +107,34 @@ def state_dict_from_jax(params: Mapping, cfg: ModelConfig
         plain_conv(base + ("post",), f"{dst}.post")
         wn_block(base + ("enc",), f"{dst}.enc", 4)
 
-    for name in ("conv_1", "conv_2", "proj"):
-        plain_conv(("dp", name), f"dp.{name}")
-    layernorm(("dp", "norm_1"), "dp.norm_1")
-    layernorm(("dp", "norm_2"), "dp.norm_2")
+    def dds_conv(src, dst):
+        for i in range(3):
+            plain_conv(src + (f"convs_sep_{i}",), f"{dst}.convs_sep.{i}")
+            plain_conv(src + (f"convs_1x1_{i}",), f"{dst}.convs_1x1.{i}")
+            layernorm(src + (f"norms_1_{i}",), f"{dst}.norms_1.{i}")
+            layernorm(src + (f"norms_2_{i}",), f"{dst}.norms_2.{i}")
+
+    if cfg.use_sdp:
+        # the inverse of the JAX importer (train/checkpoint.py:357-376)
+        for chain in ("flows", "post_flows"):
+            affine = node(("dp", f"{chain}_0"))
+            put(f"dp.{chain}.0.m", np.asarray(affine["m"]).reshape(-1, 1))
+            put(f"dp.{chain}.0.logs",
+                np.asarray(affine["logs"]).reshape(-1, 1))
+            for i in range(4):
+                src, dst = ("dp", f"{chain}_cf_{i}"), f"dp.{chain}.{1 + 2 * i}"
+                plain_conv(src + ("pre",), f"{dst}.pre")
+                dds_conv(src + ("convs",), f"{dst}.convs")
+                plain_conv(src + ("proj",), f"{dst}.proj")
+        for name in ("pre", "proj", "post_pre", "post_proj"):
+            plain_conv(("dp", name), f"dp.{name}")
+        dds_conv(("dp", "convs"), "dp.convs")
+        dds_conv(("dp", "post_convs"), "dp.post_convs")
+    else:
+        for name in ("conv_1", "conv_2", "proj"):
+            plain_conv(("dp", name), f"dp.{name}")
+        layernorm(("dp", "norm_1"), "dp.norm_1")
+        layernorm(("dp", "norm_2"), "dp.norm_2")
     if gin:
         plain_conv(("dp", "cond"), "dp.cond")
 
@@ -165,8 +197,15 @@ def discriminator_state_dict_from_jax(params: Mapping
 def load_generator_pth(path: str) -> Dict[str, torch.Tensor]:
     """State dict of a reference-format `G_*.pth` ({"model": state_dict,
     "iteration", "learning_rate", "optimizer"}), without the buffers the
-    port rebuilds itself (iSTFT window, PQMF filters)."""
+    port rebuilds itself (iSTFT window, PQMF filters); the stochastic
+    duration predictor's affine parameters as [2, 1] whichever of the
+    reference's [2, 1] and the JAX exporter's (2,) the file holds."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
-    return {k.removeprefix("module."): v for k, v in sd.items()
-            if not k.endswith(_REBUILT_BUFFERS)}
+    out = {}
+    for k, v in sd.items():
+        k = k.removeprefix("module.")
+        if k.endswith(_REBUILT_BUFFERS):
+            continue
+        out[k] = v.reshape(-1, 1) if _AFFINE.fullmatch(k) else v
+    return out

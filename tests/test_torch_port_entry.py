@@ -54,7 +54,9 @@ print(json.dumps({"modules": names, "bad": bad}))
     for name in ("synthesize", "synthesize_z", "batch_synthesize",
                  "serve.microbatch", "serve.streaming", "dsp.resample",
                  "utils.audio", "infer.synthesis", "text.jp",
-                 "voice_conversion"):
+                 "voice_conversion", "nn.transforms", "utils.metrics",
+                 "utils.observability", "data.prefetch", "train.loop",
+                 "train.checkpoint"):
         assert f"mb_istft_vits_torch.{name}" in out["modules"]
 
 

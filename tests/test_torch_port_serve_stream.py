@@ -125,9 +125,11 @@ def test_warmup_runs_each_bucket_pair(module, monkeypatch):
     seen = []
     infer = module._infer
 
-    def spy(x, x_lengths, sid, ns, ls, max_frames, gen, out_sr=None):
+    def spy(x, x_lengths, sid, ns, ls, nsw, max_frames, gen, w_eps,
+            out_sr=None):
         seen.append((x.shape[1], max_frames))
-        return infer(x, x_lengths, sid, ns, ls, max_frames, gen, out_sr)
+        return infer(x, x_lengths, sid, ns, ls, nsw, max_frames, gen, w_eps,
+                     out_sr)
 
     monkeypatch.setattr(module, "_infer", spy)
     module.warmup(pairs=[(32, 64), (64, 128)])

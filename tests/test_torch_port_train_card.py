@@ -73,7 +73,8 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device):
     states, metrics = [], []
     for device in (torch.device("cpu"), cuda_device):
         state = tstep.create_train_state(cfg, device, seed=0)
-        moved = tstep.StepDraws(*(v.to(device) for v in draws))
+        moved = tstep.StepDraws(*(None if v is None else v.to(device)
+                                  for v in draws))
         m = tstep.train_step(state, {k: v.to(device)
                                      for k, v in batch.items()}, moved)
         states.append(state)

@@ -62,7 +62,8 @@ def _multi_speaker_rows(n: int):
 def write_tiny_dataset(root, seed=5, n=6, multi_speaker=False, **train):
     """n seeded int16 wavs (100-150 frames of a tone in noise) and a
     filelist under root, with the config of their language shrunk to
-    TINY_MODEL, batch 2, a 2048-sample segment and the `train` overrides.
+    TINY_MODEL, batch 2, a 2048-sample segment, a metrics line every step
+    and the `train` overrides; the filelist is the validation set too.
     English: the n shortest of the first 500 lines of FILELIST, the
     flagship config at 22.05 kHz. multi_speaker: `path|sid|text` rows of
     speakers 0 .. n-1 (MS_FILELIST), MS_CONFIG at 16 kHz. Returns the
@@ -90,7 +91,9 @@ def write_tiny_dataset(root, seed=5, n=6, multi_speaker=False, **train):
     with open(os.path.join(root, "train.txt"), "w", encoding="utf-8") as f:
         f.write("\n".join(rows) + "\n")
     cfg["data"]["training_files"] = os.path.join(root, "train.txt")
-    cfg["train"].update(batch_size=2, segment_size=2048, **train)
+    cfg["data"]["validation_files"] = cfg["data"]["training_files"]
+    cfg["train"].update({"batch_size": 2, "segment_size": 2048,
+                         "log_interval": 1, **train})
     path = os.path.join(root, "config.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
