@@ -45,6 +45,20 @@ Phases, one JSON line each:
            log, best.json, pruning to the newest 3 and the best, metrics
            every log_interval, the epoch snap, fresh optimizers); then a
            child CLI run stopped by SIGTERM (a pair, exit code 0)
+  train_data the flagship at full width and the config's own batch 64, fed
+           from disk: LJSpeech lines rendered to wavs (utils/corpus.py), two
+           buckets of two batches; one epoch in each feed through the
+           trainer's iterator: device-spec int16 PCM, host spectrograms
+           (.spec.npy written, then a second epoch reading them) and the
+           corpus held on the card; checks the native loader path, every
+           row's cache, host against card spectrograms, resident batches
+           bit-equal to host ones, the pool's bytes, one MAS launch a step;
+           step ms, batch wait and host-to-device bytes of each feed, a
+           profiled step, peak memory; saves the pair
+  tools    the offline CLIs as child processes on the card: eval_checkpoint
+           on train_data's pair (-n 4 --tts), eval_metrics, make_corpus and
+           eval_vc (12-speaker config, random weights, 2 pairs),
+           preprocess; exit codes 0 and finite scores
   serve    flagship config, seeded random weights: warmup() of the default
            (text, frame) bucket pairs; 8 requests of filelist lines whose
            token counts warmup did not run (per request tokens, buckets,
@@ -72,10 +86,15 @@ Phases, one JSON line each:
            that holds them), a seeded repeat (bit-equal), noise_scale_w 0
            against 0.8 (other frames), a noise-free batch of 16 held to
            single requests
+  serve_bf16 the flagship in f32 and in bf16 (compute_dtype), the same
+           weights: 8 noise-free requests (frames of each, correlation over
+           the common length, RTF), each dtype's decoder on the same
+           latents, a profiled request and a batch of 16 in each
 The serving phases run last, as the serving module pins cuDNN's
 deterministic algorithms for the process. Every phase's line carries its
 wall seconds. Then one {"kernels": [...]} line (launch counts from the
-forward, train, train_sdp, train_ms, eval_ms, train_cli and serving run,
+forward, train, train_sdp, train_ms, eval_ms, train_cli, train_data and
+serving run,
 times, bounds;
 `launches` counts the first
 kernel of a port and `launches_by_kernel` each of its kernels: mas_bwd is
@@ -1570,7 +1589,7 @@ def phase_eval_ms(net_g):
     with tempfile.TemporaryDirectory() as root:
         tiny = Config.from_json(write_tiny_dataset(root, multi_speaker=True))
         ds = TextAudioDataset(tiny.data.validation_files, config.data,
-                              seed=config.train.seed)
+                              seed=config.train.seed, device_spec=True)
         infer = net_g.infer
         with mock.patch.object(net_g, "infer",
                                side_effect=infer) as syntheses:
@@ -1599,6 +1618,449 @@ def phase_eval_ms(net_g):
         raise AssertionError(f"eval_ms checks failed: {failed}")
 
 
+TRAIN_DATA_BUCKETS = (2, 3)  # (500, 600] and (600, 700] frames: 2 batches each
+LJS_FILELISTS = [os.path.join(REPO, "filelists", name) for name in (
+    "ljs_audio_text_test_filelist.txt.cleaned",
+    "ljs_audio_text_val_filelist.txt.cleaned",
+    "ljs_audio_text_train_filelist.txt.cleaned")]
+
+
+def write_train_corpus(root, config, per_bucket):
+    """The train_data corpus: LJSpeech cleaned lines rendered by the port's
+    synthetic renderer (utils/corpus.py) to int16 wavs at the config's
+    rate, per_bucket rows in each of the default buckets (500, 600] and
+    (600, 700] spectrogram frames (the test lines first, then the val and
+    train lines). Returns the filelist's path."""
+    import collections
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from mb_istft_vits_torch.data.dataset import BOUNDARIES
+    from mb_istft_vits_torch.utils.audio import float_to_int16
+    from mb_istft_vits_torch.utils.corpus import render, rendered_samples
+
+    d = config.data
+    os.makedirs(root, exist_ok=True)
+    edges = [(BOUNDARIES[b + 1], BOUNDARIES[b + 2])
+             for b in TRAIN_DATA_BUCKETS]
+    kept, rows = collections.Counter(), []
+    for filelist in LJS_FILELISTS:
+        with open(filelist, encoding="utf-8") as f:
+            for line in f:
+                path, text = line.rstrip("\n").split("|")[:2]
+                if not d.min_text_len <= len(text) <= d.max_text_len:
+                    continue
+                name = os.path.basename(path)
+                # the dataset's estimate from the wav's size, 44-byte
+                # header included
+                frames = (44 + 2 * rendered_samples(
+                    text, name, sr=d.sampling_rate)) // (2 * d.hop_length)
+                bucket = next((i for i, (lo, hi) in enumerate(edges)
+                               if lo < frames <= hi), None)
+                if bucket is None or kept[bucket] >= per_bucket:
+                    continue
+                wav = os.path.join(root, name)
+                wavfile.write(wav, d.sampling_rate, float_to_int16(
+                    render(text, name, sr=d.sampling_rate)))
+                rows.append(f"{wav}|{text}")
+                kept[bucket] += 1
+                if min(kept[i] for i in range(len(edges))) >= per_bucket:
+                    out = os.path.join(root, "train.txt")
+                    with open(out, "w", encoding="utf-8") as f:
+                        f.write("\n".join(rows) + "\n")
+                    return out
+    raise AssertionError(f"LJSpeech lines fill only {dict(kept)} rows")
+
+
+def run_feed(state, batcher, epoch, feeder=None):
+    """One epoch of `batcher` through the trainer's own iterator
+    (`train.loop._batches`: loader threads and the side-stream copy, or
+    the device-resident gather) and `train_step`: per step the ms spent
+    waiting for the batch, the synced step's host ms, the MAS launches,
+    the bytes that crossed host to device for the batch (the batch's own
+    for a host feed; the index vector for the resident one) and the
+    metrics."""
+    import torch
+
+    from mb_istft_vits_torch.train import loop
+    from mb_istft_vits_torch.train import step as tstep
+
+    steps = []
+    it = loop._batches(batcher, epoch, epoch + 1, torch.device("cuda"),
+                       feeder)
+    while True:
+        t0 = time.perf_counter()
+        batch = next(it, None)
+        if batch is None:
+            break
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n0 = mas_launches()
+        metrics = {k: float(v) for k, v in
+                   tstep.train_step(state, batch).items()}
+        torch.cuda.synchronize()
+        steps.append({
+            "wait_ms": (t1 - t0) * 1e3,
+            "host_ms": (time.perf_counter() - t1) * 1e3,
+            "mas_launches": mas_launches() - n0,
+            "h2d_bytes": (4 * len(batch["x"]) if feeder is not None
+                          else sum(v.nbytes for v in batch.values())),
+            "t_y": int(batch["spec_lengths"].max()),
+            "metrics": metrics})
+    return steps
+
+
+def phase_train_data(root):
+    """The flagship at full width and the config's own batch (64) fed from
+    disk: a corpus of LJSpeech lines rendered to wavs (write_train_corpus,
+    2 buckets x 2 batches, one epoch = 4 steps), trained one epoch in each
+    feed through the trainer's iterator: the default device-spec int16
+    PCM, host spectrograms with their .spec.npy caches (the first epoch
+    writes them; a second reads them), and the corpus held on the card.
+    Checks the native loader path, a cache for every row, host
+    spectrograms against the card's dsp.stft.spectrogram, resident batches
+    equal to the host batcher's, the pool's bytes, one MAS launch a step;
+    reports each feed's step ms, batch wait and host-to-device bytes, one
+    profiled step and peak memory. Saves the pair for the tools phase.
+    Returns (config path, model dir)."""
+    import numpy as np
+    import torch
+
+    from mb_istft_vits_torch.config import Config
+    from mb_istft_vits_torch.data import (
+        BucketedBatcher,
+        DeviceResidentFeeder,
+        TextAudioDataset,
+        dataset,
+        native_audio,
+    )
+    from mb_istft_vits_torch.dsp.stft import spectrogram
+    from mb_istft_vits_torch.train import checkpoint
+    from mb_istft_vits_torch.train import step as tstep
+
+    config = Config.from_json(CONFIG)
+    d, batch_size = config.data, config.train.batch_size
+    t0 = time.perf_counter()
+    filelist = write_train_corpus(os.path.join(root, "train_data"), config,
+                                  2 * batch_size)
+    corpus_s = time.perf_counter() - t0
+    cfg_path = os.path.join(root, "train_data", "config.json")
+    with open(CONFIG) as f:
+        cfg_json = json.load(f)
+    cfg_json["data"].update(training_files=filelist, validation_files=filelist)
+    with open(cfg_path, "w") as f:
+        json.dump(cfg_json, f)
+
+    dataset.loader_paths.clear()
+    pcm = BucketedBatcher(TextAudioDataset(filelist, d, config.train.seed,
+                                           device_spec=True), batch_size)
+    host = BucketedBatcher(TextAudioDataset(filelist, d, config.train.seed),
+                           batch_size)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    feeder = DeviceResidentFeeder(pcm, device="cuda")
+    upload_s = time.perf_counter() - t0
+    pool_allocated = torch.cuda.memory_allocated() - before
+    state = tstep.create_train_state(config, torch.device("cuda"), seed=3)
+    torch.cuda.reset_peak_memory_stats()
+    # one step per bucket shape first: cuDNN plans and allocator growth
+    # are paid here, not by the first feed
+    warm = []
+    for bi in range(len(pcm.buckets)):
+        if not pcm.buckets[bi]:  # the first bucket stays, empty or not
+            continue
+        t0 = time.perf_counter()
+        tstep.train_step(state, {k: torch.from_numpy(v).cuda() for k, v in
+                                 pcm.make_batch(bi, pcm.buckets[bi][
+                                     :batch_size]).items()})
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    feeds = {"pcm": run_feed(state, pcm, 0),
+             "host_spec": run_feed(state, host, 0),
+             "resident": run_feed(state, pcm, 0, feeder),
+             "host_spec_cached": run_feed(state, host, 1)}
+    peak = torch.cuda.max_memory_allocated()
+    last = len(pcm.buckets) - 1
+    probe = {k: torch.from_numpy(v).cuda() for k, v in
+             pcm.make_batch(last, pcm.buckets[last][:batch_size]).items()}
+    n0 = mas_launches()
+    profile = profile_call(lambda: (tstep.train_step(state, probe),
+                                    torch.cuda.synchronize()))
+    profiled_mas = mas_launches() - n0
+
+    rows = [r[0] for r in host.dataset.rows]
+    cached = [os.path.exists(os.path.splitext(p)[0] + ".spec.npy")
+              for p in rows]
+    spec_gaps = []
+    for path in rows[:4]:
+        host_spec = np.load(os.path.splitext(path)[0] + ".spec.npy")
+        wav = host.dataset.get_audio(path)[1]
+        card = spectrogram(torch.from_numpy(wav).cuda(), d.filter_length,
+                           d.hop_length, d.win_length)[0].T.cpu().numpy()
+        gap = float(np.abs(card - host_spec).max())
+        spec_gaps.append({"frames": int(host_spec.shape[0]), "max_abs": gap,
+                          "relative": gap / float(np.abs(host_spec).max())})
+    resident_equal = all(
+        sorted(g) == sorted(w) and all(
+            torch.equal(g[k], torch.from_numpy(v).cuda())
+            for k, v in w.items())
+        for g, w in zip(feeder.iter_epoch(0), pcm.iter_epoch(0)))
+    model_dir = os.path.join(root, "train_data", "logs")
+    checkpoint.save(model_dir, state)
+
+    paths = dict(dataset.loader_paths)
+    all_steps = [s for steps in feeds.values() for s in steps]
+
+    def summary(steps):
+        ms = [s["host_ms"] for s in steps]
+        return {"step_ms": ms, "step_ms_median": statistics.median(ms),
+                "wait_ms": [s["wait_ms"] for s in steps],
+                "h2d_bytes_per_step": statistics.median(
+                    s["h2d_bytes"] for s in steps),
+                "t_y": [s["t_y"] for s in steps]}
+
+    checks = {
+        "batch_is_the_configs_64": batch_size == 64,
+        "one_epoch_is_4_steps": all(len(s) == 4 for s in feeds.values()),
+        "native_loader_path": native_audio.available()
+        and paths.get("wav_native", 0) > 0
+        and paths.get("spec_native", 0) > 0
+        and not paths.get("wav_scipy") and not paths.get("spec_numpy"),
+        "every_row_has_its_spec_npy": len(rows) == 4 * batch_size
+        and all(cached),
+        "host_spec_matches_card_spectrogram": all(
+            g["relative"] <= 1e-4 for g in spec_gaps),
+        "resident_batches_equal_host_batches": resident_equal,
+        "pool_bytes_equal_corpus_bytes":
+            feeder.nbytes == DeviceResidentFeeder.corpus_bytes(pcm)
+            and pool_allocated >= feeder.nbytes,
+        "mas_once_per_step": all(s["mas_launches"] == 1 for s in all_steps)
+        and profiled_mas == 1,
+        "metrics_finite": all(math.isfinite(v) for s in all_steps
+                              for v in s["metrics"].values()),
+    }
+    emit("train_data", config=os.path.relpath(CONFIG, REPO),
+         batch=batch_size, rows=len(rows), corpus_seconds=corpus_s,
+         buckets=pcm.boundaries, loader_paths=paths,
+         pool_bytes=feeder.nbytes, pool_allocated_bytes=pool_allocated,
+         corpus_bytes=DeviceResidentFeeder.corpus_bytes(pcm),
+         upload_seconds=upload_s, warmup_step_ms=warm,
+         feeds={k: summary(v) for k, v in feeds.items()},
+         loss_g_mel=[s["metrics"]["loss/g/mel"] for s in all_steps],
+         host_spec_vs_card=spec_gaps, peak_memory_bytes=peak,
+         profile=profile, device_busy_share=profile["device_busy_share"],
+         checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"train_data checks failed: {failed}")
+    return cfg_path, model_dir
+
+
+def _tool(*args, cwd):
+    """A port CLI in a child process; (Popen, its output file)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, "-m",
+                             f"mb_istft_vits_torch.{args[0]}", *args[1:]],
+                            cwd=cwd, env=env, stdout=out,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def _finish(proc, out, timeout=300):
+    """(exit code, output) of a _tool child; killed past the timeout."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    out.seek(0)
+    text = out.read()
+    out.close()
+    return proc.returncode, text
+
+
+def phase_tools(root, trained):
+    """The offline tools as a user runs them, each a child process on the
+    card: eval_checkpoint on train_data's pair (-n 4 --tts --save-audio
+    --out), eval_metrics on its ground truth against its copy synthesis,
+    make_corpus of a UUDB corpus (utils/corpus.py) then eval_vc of the
+    12-speaker config with random weights on 2 pairs, and preprocess of
+    Japanese katakana rows; eval_checkpoint, the corpus and preprocess run
+    side by side. Checks each exit code 0 and finite scores."""
+    import numpy as np
+    import torch
+
+    from mb_istft_vits_torch.config import Config
+    from mb_istft_vits_torch.models import Synthesizer
+    from mb_istft_vits_torch.train import checkpoint
+
+    cfg_path, model_dir = trained
+    work = os.path.join(root, "tools")
+    os.makedirs(work)
+    pth = os.path.join(model_dir,
+                       f"G_{checkpoint.latest_step(model_dir)}.pth")
+    jp_list = os.path.join(work, "jp.txt")
+    with open(jp_list, "w", encoding="utf-8") as f:
+        f.write("a.wav|0|コンニチハ\nb.wav|5|アリガトウゴザイマシタ\n")
+    t0 = time.perf_counter()
+    running, results = {}, {}
+    try:
+        running["eval_checkpoint"] = _tool(
+            "eval_checkpoint", "-c", cfg_path, "-k", pth, "-n", "4", "--tts",
+            "--save-audio", "wavs", "--out", "eval.json", cwd=work)
+        running["make_corpus"] = _tool(
+            "make_corpus", "uudb", "--dataset", "uudb", "--n-train", "1",
+            "--n-val", "24", cwd=work)
+        running["preprocess"] = _tool(
+            "preprocess", "--filelists", jp_list, "--text_index", "2",
+            "--text_module", "text_JP", "--text_cleaners",
+            "japanese_cleaners", cwd=work)
+        # each tool starts once its input is there
+        results["make_corpus"] = _finish(*running.pop("make_corpus"))
+        if results["make_corpus"][0] == 0:
+            # the 12-speaker config at full width, random weights
+            ms_cfg = Config.from_json(os.path.join(work, "uudb",
+                                                   "config.json"))
+            torch.manual_seed(0)
+            torch.save({"model": Synthesizer(ms_cfg.model).state_dict()},
+                       os.path.join(work, "G_ms.pth"))
+            running["eval_vc"] = _tool(
+                "eval_vc", "-c", "uudb/config.json", "-k", "G_ms.pth",
+                "--pairs", "0:5", "3:7", cwd=work)
+        results["eval_checkpoint"] = _finish(*running.pop("eval_checkpoint"))
+        running["eval_metrics"] = _tool(
+            "eval_metrics", "wavs/utt0_gt.wav", "wavs/utt0_copy.wav",
+            "--json", "metrics.json", cwd=work)
+        for name in list(running):
+            results[name] = _finish(*running.pop(name))
+    finally:  # no child outlives a failure here
+        for proc, out in running.values():
+            _finish(proc, out, timeout=0)
+    results.setdefault("eval_vc", (None, ""))
+    seconds = time.perf_counter() - t0
+    rcs = {name: rc for name, (rc, _) in results.items()}
+    report = {}
+    if rcs["eval_checkpoint"] == 0:
+        with open(os.path.join(work, "eval.json")) as f:
+            report["eval_checkpoint"] = json.load(f)["summary"]
+    if rcs["eval_metrics"] == 0:
+        with open(os.path.join(work, "metrics.json")) as f:
+            report["eval_metrics"] = json.load(f)[0]
+    vc_rows = [line for line in results["eval_vc"][1].splitlines()
+               if re.match(r"\s*\d+->\d+\s+\|", line)]
+    cleaned = None
+    if os.path.exists(jp_list + ".cleaned"):
+        with open(jp_list + ".cleaned", encoding="utf-8") as f:
+            cleaned = f.read().splitlines()
+
+    def finite(tree):
+        if isinstance(tree, dict):
+            return all(finite(v) for v in tree.values())
+        return not isinstance(tree, float) or math.isfinite(tree)
+
+    checks = {
+        "exit_codes_zero": all(rc == 0 for rc in rcs.values()),
+        "eval_checkpoint_finite": "eval_checkpoint" in report
+        and report["eval_checkpoint"]["n_utts"] == 4
+        and finite(report["eval_checkpoint"]),
+        "eval_metrics_finite": "eval_metrics" in report
+        and finite(report["eval_metrics"]),
+        "eval_vc_two_pairs_finite": len(vc_rows) == 2
+        and "nan" not in " ".join(vc_rows),
+        "preprocess_rows": cleaned is not None and len(cleaned) == 2,
+    }
+    emit("tools", seconds=seconds, exit_codes=rcs, scores=report,
+         eval_vc_rows=vc_rows, preprocess_rows=cleaned,
+         tails={k: v[-400:] for k, (rc, v) in results.items() if rc != 0},
+         checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"tools checks failed: {failed}")
+
+
+def phase_serve_bf16():
+    """The flagship served with the same seeded weights in f32 and in
+    bf16 (compute_dtype; the iSTFT and after in f32): after warmup(), 8
+    noise-free filelist lines in each, per request the frames of each,
+    the correlation over the common length and the RTF; the decoder of
+    each on the f32 module's latents of the request (equal frames by
+    construction); one profiled request in each dtype; a batch of 16 in
+    each. Checks the PCM on the int16 grid, the decoders' correlation
+    >= 0.99 on every request and the requests' correlation >= 0.99
+    wherever the frames are equal; frames that differ are counted."""
+    import numpy as np
+    import torch
+
+    from mb_istft_vits_torch.infer.synthesis import SynthesisModule
+
+    mods = {"f32": SynthesisModule(CONFIG, None, None, 0, device="cuda"),
+            "bf16": SynthesisModule(CONFIG, None, None, 0, torch.bfloat16,
+                                    device="cuda")}
+    warm = {}
+    for name, sm in mods.items():
+        t0 = time.perf_counter()
+        sm.warmup()
+        warm[name] = time.perf_counter() - t0
+    quiet = dict(noise_scale=0.0, seed=0)
+    requests, checks = [], {}
+
+    def check(name, ok):
+        checks[name] = checks.get(name, True) and bool(ok)
+
+    for text in _texts(SERVE_REQUESTS):
+        out = {}
+        for name, sm in mods.items():
+            _fresh_bucket_state(sm)
+            out[name] = sm.synthesize(text, **quiet)
+        (a, ta), (b, tb) = out["bf16"], out["f32"]
+        pcm = a * 32767.0
+        check("bf16_on_int16_grid", _wav_ok(a)
+              and np.array_equal(pcm, np.round(pcm)))
+        n = min(a.size, b.size)
+        corr = _corr(a[:n], b[:n])
+        z, _, _ = mods["f32"].prepare_shared_latents(text, **quiet)
+        dec = _corr(mods["bf16"].infer_z_only(z), mods["f32"].infer_z_only(z))
+        check("decoder_corr_at_least_0.99", dec >= 0.99)
+        if a.size == b.size:
+            check("corr_at_least_0.99_at_equal_frames", corr >= 0.99)
+        requests.append({
+            "frames": {"bf16": a.size // 256, "f32": b.size // 256},
+            "frame_bucket": {"bf16": ta["frame_bucket"],
+                             "f32": tb["frame_bucket"]},
+            "corr_common_length": corr, "decoder_corr": dec,
+            "rtf": {"bf16": ta["rtf"], "f32": tb["rtf"]}})
+    profiles = {name: profile_call(lambda sm=sm: sm.synthesize(
+        _texts(SERVE_REQUESTS + 1)[-1], **quiet)) for name, sm in mods.items()}
+    batches = {}
+    for name, sm in mods.items():
+        sm.synthesize_batch(_texts(SERVE_BATCH), **quiet)  # shapes seen
+        rows, tm = sm.synthesize_batch(_texts(SERVE_BATCH), **quiet)
+        batches[name] = dict(tm, rows=rows)
+        check(f"batch_rows_{name}", len(rows) == SERVE_BATCH
+              and all(_wav_ok(r) for r in rows))
+    emit("serve_bf16", config=os.path.relpath(CONFIG, REPO),
+         weights="random (seed 0), equal in both dtypes",
+         warmup_seconds=warm, requests=requests,
+         frames_differ=sum(r["frames"]["bf16"] != r["frames"]["f32"]
+                           for r in requests),
+         median_rtf={k: statistics.median(r["rtf"][k] for r in requests)
+                     for k in mods},
+         profile_request=profiles,
+         batch={k: {m: v for m, v in b.items() if m != "rows"}
+                for k, b in batches.items()},
+         batch_row_corr=[_corr(x, y) for x, y in zip(
+             batches["bf16"]["rows"], batches["f32"]["rows"])
+             if x.size == y.size],
+         checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"serve_bf16 checks failed: {failed}")
+
+
 def main() -> int:
     smi = run_phase(phase_device)
     sys.path.insert(0, REPO)
@@ -1624,12 +2086,17 @@ def main() -> int:
         del net_ms
         torch.cuda.empty_cache()
         run_phase(phase_train_cli)
+        torch.cuda.empty_cache()
+        trained = run_phase(phase_train_data, root)
+        torch.cuda.empty_cache()
+        run_phase(phase_tools, root, trained)
         # last: the serving modules pin cuDNN's deterministic algorithms
         # for the rest of the process
         run_phase(phase_serve)
         run_phase(phase_serve_ms)
         run_phase(phase_serve_istft)
         run_phase(phase_serve_sdp, root)
+        run_phase(phase_serve_bf16)
     launches = dict(mas.launch_counts)
     missing = [k for k, v in launches.items() if v == 0]
     if missing:

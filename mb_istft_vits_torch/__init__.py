@@ -22,6 +22,14 @@ public layouts and never imports it (nor JAX). What is ported so far:
     step against the updated discriminator; the CLI evaluates at
     `eval_interval` (`utils.metrics`), keeps the best-by-eval checkpoint,
     prunes the rest and checkpoints on SIGTERM
+  - the training data (`data`): wavs read and host spectrograms computed
+    in C++ (`csrc/audio.cpp`), `.spec.npy` caches, rank-strided length
+    buckets, and the three feeds of the trainer: int16 PCM with the
+    spectrogram on the card, host spectrograms (`--host-spec`), the
+    corpus held on the card (`--device-resident`)
+  - bf16 serving (`SynthesisModule(..., compute_dtype=torch.bfloat16)`)
+    and the offline tools (`python -m mb_istft_vits_torch.eval_checkpoint`,
+    `.eval_metrics`, `.eval_vc`, `.make_corpus`, `.preprocess`)
 
 Modules run in torch's [B, C, T] layout inside; the public `Synthesizer`
 methods take and return the JAX package's [B, T, C] layouts. Entry points

@@ -1,5 +1,6 @@
-"""Host-side training data: filelist dataset, length-bucketed
-static-shape batching and the loader / host-to-device prefetch."""
+"""Host-side training data: filelist dataset, host spectrograms and the
+native loader, length-bucketed static-shape batching, the loader /
+host-to-device prefetch and the corpus held on the card."""
 
 from mb_istft_vits_torch.data.dataset import (  # noqa: F401
     BucketedBatcher,
@@ -11,4 +12,7 @@ from mb_istft_vits_torch.data.prefetch import (  # noqa: F401
     PrefetchIterator,
     device_prefetch,
     prefetch_epoch,
+)
+from mb_istft_vits_torch.data.resident import (  # noqa: F401
+    DeviceResidentFeeder,
 )

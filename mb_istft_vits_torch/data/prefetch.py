@@ -2,16 +2,18 @@
 the reference's `DataLoader(num_workers=8, pin_memory=True)`,
 train_latest.py:85).
 
-`PrefetchIterator` assembles an epoch's batches (wav read, pad, int16) on
-worker threads while the card runs the step; the work is numpy and scipy
-I/O, which release the interpreter lock. An in-order window of at most
-`prefetch_depth` batches bounds host memory and keeps the batcher's
+`PrefetchIterator` assembles an epoch's batches (wav read, host
+spectrogram or its `.spec.npy` cache, pad, int16) on worker threads while
+the card runs the step; the work is numpy and the native loader's C calls
+(ctypes), which release the interpreter lock. An in-order window of at
+most `prefetch_depth` batches bounds host memory and keeps the batcher's
 epoch-seeded order.
 
 `device_prefetch` copies batch i+1.. to the card while step i runs: each
-host batch goes through pinned memory by a non-blocking copy on a side
-stream, and the consumer's stream waits on that copy's event before the
-batch is used. At most `depth` batches are in flight.
+host batch, every key of it (`spec` too on the host-spec feed), goes
+through pinned memory by a non-blocking copy on a side stream, and the
+consumer's stream waits on that copy's event before the batch is used.
+At most `depth` batches are in flight.
 """
 
 from __future__ import annotations

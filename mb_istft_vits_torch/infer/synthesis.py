@@ -27,9 +27,19 @@ noise once, first from its generator, and hands the same draw to the
 frame-bucket probe and to the decode (the JAX package passes one key to
 both programs), so the probe's frames are the decode's.
 
-Not ported: the serving mesh (`mesh`, `_shard_to_mesh`), the AOT
-executable cache (`aot_cache_dir`), `compute_dtype` other than f32 and
-Orbax checkpoints (the port reads reference `.pth` files).
+Precision: `compute_dtype` (float32 by default; bfloat16 as the JAX
+package serves on a TPU) is the dtype of every floating parameter and
+buffer and of the model's activations, the duration predictor included,
+so bf16 frames are JAX-bf16 frames; the explicit draws are cast to it
+where they are used. The spec-phase head and everything after it (the
+iSTFT, the sub-band synthesis, the resampler and the PCM) run in float32:
+`torch.istft` has no bfloat16 on the card, where the JAX package runs
+its iSTFT and PQMF as bf16 matmuls.
+
+Not ported: the serving mesh (a `mesh` of more than one device raises;
+ROADMAP item 9.3) and Orbax checkpoints (the port reads reference `.pth`
+files). `aot_cache_dir` is accepted and unused: eager PyTorch compiles
+no executables to cache.
 """
 
 from __future__ import annotations
@@ -45,7 +55,11 @@ import numpy as np
 import torch
 
 from mb_istft_vits_torch.config import Config
-from mb_istft_vits_torch.device import disable_tf32, resolve_device
+from mb_istft_vits_torch.device import (
+    disable_tf32,
+    require_one_device,
+    resolve_device,
+)
 from mb_istft_vits_torch.dsp.resample import resample_poly_torch
 from mb_istft_vits_torch.models import Synthesizer
 from mb_istft_vits_torch.text import frontend_ids, get_symbols
@@ -88,9 +102,15 @@ class SynthesisModule:
     """Loads a config and generator weights (`params`, a state dict with
     the reference names; else a reference `G_*.pth`; else random weights
     from `seed`) and serves text on `device` (CUDA unless "cpu" is asked
-    for; no fallback). The positional order is the JAX package's
-    (config_path, checkpoint_path, params, seed); `device` is the port's
-    own and keyword-only."""
+    for; no fallback) in `compute_dtype`. The positional order is the JAX
+    package's (config_path, checkpoint_path, params, seed, compute_dtype,
+    mesh, aot_cache_dir); `device` is the port's own and keyword-only.
+
+    `mesh`: None, or a mesh or device list of one device, serves on one
+    device (JAX's `mesh.size > 1` rule); a larger one raises
+    NotImplementedError. `aot_cache_dir`: accepted for JAX's callers and
+    not used (nothing is compiled ahead of time in eager PyTorch; JAX
+    itself ignores it where its cache is unusable or a mesh is set)."""
 
     TEXT_BUCKETS = (32, 64, 128, 192, 256, 384)
     FRAME_BUCKETS = (128, 192, 256, 384, 512, 768, 1024, 1536, 2048)
@@ -104,8 +124,16 @@ class SynthesisModule:
     def __init__(self, config_path: str,
                  checkpoint_path: Optional[str] = None,
                  params: Optional[Dict[str, torch.Tensor]] = None,
-                 seed: int = 0, *,
+                 seed: int = 0, compute_dtype: torch.dtype = torch.float32,
+                 mesh=None, aot_cache_dir: Optional[str] = None, *,
                  device: Optional[Union[str, torch.device]] = None):
+        if not (isinstance(compute_dtype, torch.dtype)
+                and compute_dtype.is_floating_point):
+            raise TypeError(f"compute_dtype must be a floating torch.dtype, "
+                            f"not {compute_dtype!r}")
+        require_one_device(mesh, "SynthesisModule")
+        self.mesh = None
+        self.aot_cache_dir = aot_cache_dir
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             # an explicit index: worker threads must not depend on their
@@ -131,6 +159,13 @@ class SynthesisModule:
         elif checkpoint_path is not None:
             model.load_state_dict(load_generator_pth(checkpoint_path))
         self.model = model.to(dev).eval()
+        self.compute_dtype = compute_dtype
+        if compute_dtype != torch.float32:
+            keep = tuple(f"dec.{p}" for p in model.dec.FLOAT32_TAIL)
+            for name, v in [*model.named_parameters(),
+                            *model.named_buffers()]:
+                if v.is_floating_point() and not name.startswith(keep):
+                    v.data = v.data.to(compute_dtype)
         self.hop_length = self.data_cfg.hop_length
         self.sampling_rate = self.data_cfg.sampling_rate
         # unseeded requests draw from this stream, in call order
@@ -154,12 +189,19 @@ class SynthesisModule:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
+    def _latents_to_device(self, z: np.ndarray) -> torch.Tensor:
+        """Host latents (float32) -> the device, in the compute dtype."""
+        return self._to_device(z).to(self.compute_dtype)
+
     def _fetch(self, tensors: Sequence[torch.Tensor]
                ) -> Callable[[], List[np.ndarray]]:
         """Start copying `tensors` to the host; the returned callable
         waits for the copy and gives numpy arrays. On CUDA the copies go
         to pinned memory behind the work already queued, so later work
         can be queued before the wait."""
+        # numpy has no bfloat16: such tensors come back as float32
+        tensors = [t.float() if t.dtype == torch.bfloat16 else t
+                   for t in tensors]
         if self.device.type != "cuda":
             arrays = [t.numpy() for t in tensors]
             return lambda: arrays
@@ -238,14 +280,16 @@ class SynthesisModule:
         [N, T * hop] (device)."""
         with torch.no_grad():
             return _pcm16(self.model.decode(
-                self._to_device(windows), self._sid_rows(len(windows), sid))[0])
+                self._latents_to_device(windows),
+                self._sid_rows(len(windows), sid))[0])
 
     def _decode_spec(self, windows: np.ndarray, sid: Optional[int] = None):
         """z windows [N, T, C] of speaker `sid` -> (spec, phase) on the
         device, [N, F, s, bins] ([N, F, bins] for the iSTFT head)."""
         with torch.no_grad():
             _, _, spec, phase = self.model.decode(
-                self._to_device(windows), self._sid_rows(len(windows), sid))
+                self._latents_to_device(windows),
+                self._sid_rows(len(windows), sid))
             return spec, phase
 
     # ------------------------------------------------------------------

@@ -9,6 +9,12 @@ one per band followed by PQMF synthesis (`MultibandISTFTGenerator`) or by
 zero-stuffing and a learned 63-tap synthesis conv
 (`MultistreamISTFTGenerator`). The speaker conditioning g [B, gin, 1]
 reaches every ResBlock of the trunk.
+
+Precision: the spec-phase head and everything after it (the iSTFT, PQMF
+synthesis, the multi-stream synthesis conv) run in float32 whatever the
+trunk's dtype: cuFFT, and so `torch.istft`, has no bfloat16. A bf16
+serving module keeps the parameters and buffers named by a head's
+`FLOAT32_TAIL` in float32 (`infer.synthesis.SynthesisModule`).
 """
 
 from __future__ import annotations
@@ -29,9 +35,9 @@ from mb_istft_vits_torch.nn.layers import get_padding, leaky_relu
 def _spec_phase(x: torch.Tensor, n_fft: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """exp-magnitude / pi*sin-phase head (reference models.py:294-295) on
-    [..., n_fft + 2, T] -> two [..., n_bins, T]."""
+    [..., n_fft + 2, T] -> two [..., n_bins, T], in float32."""
     n_bins = n_fft // 2 + 1
-    mag, ph = torch.split(x, [n_bins, n_fft + 2 - n_bins], dim=-2)
+    mag, ph = torch.split(x.float(), [n_bins, n_fft + 2 - n_bins], dim=-2)
     return torch.exp(mag), math.pi * torch.sin(ph)
 
 
@@ -45,6 +51,10 @@ class _UpsamplerTrunk(nn.Module):
     (reference models.py:278-291). Its parameters sit directly on the
     decoder (`dec.conv_pre`, `dec.ups.*`, `dec.resblocks.*`), as in the
     reference state dict."""
+
+    # parameters and buffers (names under `dec.`) that stay float32 when
+    # the rest of the model is cast to a lower compute dtype
+    FLOAT32_TAIL: Tuple[str, ...] = ()
 
     def __init__(self, initial_channel: int, resblock: str,
                  resblock_kernel_sizes: Sequence[int],
@@ -169,6 +179,8 @@ class MultibandISTFTGenerator(_SubbandISTFTGenerator):
     """Per-band iSTFT + fixed PQMF synthesis (reference models.py:309-384).
     o_mb is the band-major sub-band waveforms [B, s, T_band]."""
 
+    FLOAT32_TAIL = ("pqmf.",)
+
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.pqmf = PQMF(self.subbands)
@@ -183,6 +195,8 @@ class MultistreamISTFTGenerator(_SubbandISTFTGenerator):
     models.py:463) then a learned 63-tap conv, s -> 1 channels, no bias.
     o_mb is the zero-stuffed conv input [B, s, T_band * s] (JAX returns
     it channels-last, [B, T_band * s, s])."""
+
+    FLOAT32_TAIL = ("multistream_conv_post.",)
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)

@@ -306,7 +306,12 @@ class Synthesizer(nn.Module):
                            generator=generator)
         else:
             logw = self.dp(h, x_mask, g)
-        w_ceil = torch.ceil(torch.exp(logw) * x_mask * length_scale)
+        # exp(logw) in the compute dtype, the product and ceil in float32,
+        # as the JAX serving programs compute them (their length_scale is
+        # a float32 scalar, which promotes the product); so the frame sums
+        # are exact (a bf16 sum would round totals past 256 frames)
+        w_ceil = torch.ceil(torch.exp(logw).float() * x_mask
+                            * length_scale)
         y_lengths = torch.clamp(torch.sum(w_ceil, dim=(1, 2)), min=1.0)
         return m_p, logs_p, x_mask, g, w_ceil, y_lengths.to(torch.int32)
 
@@ -325,8 +330,8 @@ class Synthesizer(nn.Module):
         if eps is None:
             eps = torch.randn(m_p.shape, generator=generator, dtype=m_p.dtype,
                               device=m_p.device)
-        else:
-            eps = _cl(eps)
+        else:  # in the compute dtype, as JAX draws it in m_p's
+            eps = _cl(eps).to(m_p.dtype)
         z_p = m_p + eps * torch.exp(logs_p) * noise_scale
         z = self.flow(z_p, y_mask, g, reverse=True)
         return z, z_p, m_p, logs_p, attn, y_mask, y_lengths, g

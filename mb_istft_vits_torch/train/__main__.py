@@ -3,8 +3,9 @@
 with its argument names and meanings).
 
     python -m mb_istft_vits_torch.train -c configs/ljs_mb_istft_vits.json \
-        -m NAME [--max-steps N] [--reset-optimizer] [--boundaries F0,F1,..]
-        [--debug-nans] [--device cuda|cpu] [--seed S]
+        -m NAME [--max-steps N] [--reset-optimizer] [--host-spec]
+        [--device-resident] [--boundaries F0,F1,..] [--debug-nans]
+        [--device cuda|cpu] [--seed S]
 
 Everything goes to logs/NAME/: train.log (one line of metrics every
 `log_interval` steps, to stdout too), the config and git commit, and
@@ -17,9 +18,17 @@ resumes from the newest pair, at the start of its epoch. SIGTERM saves a
 pair at the next step boundary and exits 0; so does the last step. Runs
 on CUDA unless --device cpu; without a card it raises.
 
-Not carried over from the JAX CLI: --host-spec and --device-resident
-(the data path is a later part of the port) and --aot-cache (nothing is
-compiled ahead of time in eager PyTorch).
+Feeding: by default batches carry int16 PCM and the spectrogram is
+computed on the card. --host-spec is the reference pipeline: host
+spectrograms, cached as .spec.npy beside each wav. --device-resident
+uploads the whole bucket-padded corpus to the card once and gathers each
+batch there (with --host-spec it warns and feeds from the host). The
+loader reads wavs and computes host spectrograms in C++
+(`csrc/audio.cpp`, built with g++ into `mb_istft_vits_torch/_build/` at
+first use), else with scipy and numpy, with a warning.
+
+Not carried over from the JAX CLI: --aot-cache (nothing is compiled ahead
+of time in eager PyTorch).
 """
 
 from __future__ import annotations
@@ -41,6 +50,18 @@ def main(argv=None) -> int:
                     help="resume the weights but not the optimizer state: "
                          "the lr schedule starts again from the initial lr "
                          "(the reference's train_latest_fixed.py:117-128)")
+    ap.add_argument("--host-spec", action="store_true",
+                    help="compute linear spectrograms on the host with a "
+                         ".spec.npy cache (the reference pipeline, "
+                         "data_utils.py:78-86) instead of the default "
+                         "on-device spectrogram with int16 PCM feeding")
+    ap.add_argument("--device-resident", action="store_true",
+                    help="upload the whole bucket-padded corpus to the "
+                         "card once and assemble batches with an on-device "
+                         "gather: only a [batch]-int32 index vector crosses "
+                         "host->device per step (int16 PCM: ~0.16 GB/h at "
+                         "22.05 kHz). Implies the default device-spec "
+                         "feeding")
     ap.add_argument("--boundaries", default=None, metavar="F0,F1,...",
                     help="bucket boundaries in spectrogram frames (default: "
                          "the reference's 32,300,...,1000)")

@@ -1,7 +1,9 @@
-"""The training CLI's run (the JAX package's `train.py:235-584`): data,
-resume with the epoch snap, the step loop with loader prefetch, metrics
-every `log_interval` steps, evaluation, checkpoints, best-by-eval and
-pruning every `eval_interval` steps, and a checkpoint on SIGTERM.
+"""The training CLI's run (the JAX package's `train.py:235-584`): data
+(device-spec PCM by default, `--host-spec` spectrograms, or the
+`--device-resident` corpus on the card), resume with the epoch snap, the
+step loop with loader prefetch, metrics every `log_interval` steps,
+evaluation, checkpoints, best-by-eval and pruning every `eval_interval`
+steps, and a checkpoint on SIGTERM.
 
 Evaluation (`evaluate`, JAX `train.py:112-232`) runs whenever the
 validation set loads. Its scalars always go to the log and decide the
@@ -30,6 +32,7 @@ import torch
 from mb_istft_vits_torch.config import Config
 from mb_istft_vits_torch.data import (
     BucketedBatcher,
+    DeviceResidentFeeder,
     TextAudioDataset,
     device_prefetch,
     prefetch_epoch,
@@ -89,10 +92,14 @@ def make_eval_dataset(cfg: Config, logger: logging.Logger
                       ) -> Optional[TextAudioDataset]:
     """The validation set, built once at start-up (the cleaners run over
     every row, and a broken filelist shows before training starts); None
-    when it cannot be read."""
+    when it cannot be read. Its items carry PCM only: `evaluate` computes
+    the spectrogram of item 0 on the card, so a host spectrogram (and its
+    `.spec.npy` beside the validation wav) would go unused. The JAX
+    trainer builds it with the host-spec default (ROADMAP, "Known
+    differences")."""
     try:
         return TextAudioDataset(cfg.data.validation_files, cfg.data,
-                                seed=cfg.train.seed)
+                                seed=cfg.train.seed, device_spec=True)
     except (OSError, ValueError, IndexError, KeyError) as e:
         logger.warning("eval disabled: %s", e)
         return None
@@ -224,11 +231,16 @@ def _summarize_eval(writer, cfg, net_g, global_step, scalars, audio, attn,
 
 
 def _batches(batcher: BucketedBatcher, first_epoch: int, epochs: int,
-             device: torch.device):
+             device: torch.device,
+             feeder: Optional[DeviceResidentFeeder] = None):
     """Every batch of epochs first_epoch .. epochs - 1, in order, on
-    `device`: loader threads ahead of the step, copies to the card ahead
-    of the batch's use."""
+    `device`: gathered on the card by `feeder`, or assembled by loader
+    threads ahead of the step and copied to the card ahead of the batch's
+    use."""
     for epoch in range(first_epoch, epochs):
+        if feeder is not None:  # only the index vector crosses per step
+            yield from feeder.iter_epoch(epoch)
+            continue
         with contextlib.closing(device_prefetch(
                 prefetch_epoch(batcher, epoch, LOADER_THREADS),
                 device)) as epoch_batches:
@@ -302,7 +314,8 @@ def run(args: argparse.Namespace) -> int:
         with open(os.path.join(model_dir, "config.json"), "w") as f:
             f.write(cfg_text)
         dataset = TextAudioDataset(cfg.data.training_files, cfg.data,
-                                   seed=cfg.train.seed)
+                                   seed=cfg.train.seed,
+                                   device_spec=not args.host_spec)
         bucket_kw = {}
         if args.boundaries:
             bucket_kw["boundaries"] = [int(v) for v in
@@ -318,6 +331,18 @@ def run(args: argparse.Namespace) -> int:
         logger.info("dataset: %d utts, %d steps/epoch, buckets %s, "
                     "device %s", len(dataset), spe, batcher.boundaries,
                     device)
+        feeder = None
+        if args.device_resident:
+            if args.host_spec:
+                logger.warning("--device-resident requires device-spec "
+                               "feeding — falling back to host feeding")
+            else:
+                logger.info("device-resident corpus: uploading ~%.2f GB of "
+                            "bucket-padded pools to %s",
+                            DeviceResidentFeeder.corpus_bytes(batcher) / 1e9,
+                            device)
+                feeder = DeviceResidentFeeder(batcher, logger=logger,
+                                              device=device)
         state = create_train_state(cfg, device, seed)
         if args.debug_nans:
             enable_nan_debugging()
@@ -337,7 +362,7 @@ def run(args: argparse.Namespace) -> int:
         t = cfg.train
         t_last = time.perf_counter()
         first_epoch = state.step // spe if state.step < last else t.epochs
-        batches = _batches(batcher, first_epoch, t.epochs, device)
+        batches = _batches(batcher, first_epoch, t.epochs, device, feeder)
         with _Sigterm() as sigterm, contextlib.closing(batches):
             for batch in batches:
                 metrics = train_step(state, batch)

@@ -56,7 +56,9 @@ print(json.dumps({"modules": names, "bad": bad}))
                  "utils.audio", "infer.synthesis", "text.jp",
                  "voice_conversion", "nn.transforms", "utils.metrics",
                  "utils.observability", "data.prefetch", "train.loop",
-                 "train.checkpoint"):
+                 "train.checkpoint", "data.resident", "data.native_audio",
+                 "utils.native_build", "utils.corpus", "eval_metrics",
+                 "eval_checkpoint", "eval_vc", "preprocess", "make_corpus"):
         assert f"mb_istft_vits_torch.{name}" in out["modules"]
 
 

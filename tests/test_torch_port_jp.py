@@ -124,7 +124,8 @@ def test_multispeaker_dataset_collates_sid_like_jax(tmp_path):
     filelist.write_text("\n".join(rows) + "\n", encoding="utf-8")
     kw = dict(n_speakers=12, text_module="text_JP", sampling_rate=16000,
               text_cleaners=("japanese_cleaners",), max_text_len=800)
-    ds = TextAudioDataset(str(filelist), DataConfig(**kw), seed=3)
+    ds = TextAudioDataset(str(filelist), DataConfig(**kw), seed=3,
+                          device_spec=True)
     jds = JDataset(str(filelist), JDataConfig(**kw), seed=3,
                    device_spec=True)
     assert ds.rows == jds.rows and ds.lengths == jds.lengths

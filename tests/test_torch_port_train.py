@@ -3,7 +3,8 @@ STFT / spectrogram / mel front ends, PQMF analysis, every loss, the
 weight-normed Conv2d, the multi-period discriminator and its weight
 bridge, `Synthesizer.fake_slice`, AdamW and the lr schedule, the
 dataset and bucketed batcher, and one whole D + G step against
-`make_train_step`'s `d_step` and `g_step`.
+`make_train_step`'s `d_step` and `g_step`, on each feed: int16 PCM with
+the spectrogram computed in the step, and host spectrograms.
 
 Tiny model of torch_port_common with p_dropout 0, hop 256 (513 bins),
 a 2048-sample segment, batch 2. Tolerances: f32 max-abs <= 1e-4 for
@@ -51,6 +52,7 @@ from mb_istft_vits_tpu.train.step import make_lr_schedule as j_lr_schedule
 from mb_istft_vits_torch import losses
 from mb_istft_vits_torch.config import Config, DataConfig, TrainConfig
 from mb_istft_vits_torch.data import BucketedBatcher, TextAudioDataset
+from mb_istft_vits_torch.data.dataset import _spectrogram_host
 from mb_istft_vits_torch.dsp import mel, stft
 from mb_istft_vits_torch.dsp.pqmf import PQMF
 from mb_istft_vits_torch.models import MultiPeriodDiscriminator, synthesizer
@@ -315,7 +317,8 @@ def test_dataset_and_batcher_match_jax(tmp_path):
         rows.append(f"{path}|{text}")
     filelist = tmp_path / "list.txt"
     filelist.write_text("\n".join(rows) + "\n", encoding="utf-8")
-    ds = TextAudioDataset(str(filelist), DataConfig(), seed=3)
+    ds = TextAudioDataset(str(filelist), DataConfig(), seed=3,
+                          device_spec=True)
     jds = JDataset(str(filelist), JDataConfig(), seed=3, device_spec=True)
     assert ds.rows == jds.rows and ds.lengths == jds.lengths
     ours, ref = BucketedBatcher(ds, 2), JBatcher(jds, 2)
@@ -358,10 +361,30 @@ def _step_batch(seed=11, b=2, t_x=11, t_spec=40):
             "wav": wav, "wav_lengths": lw.astype(np.int32)}
 
 
-@pytest.fixture(scope="module")
-def step_run(tmp_path_factory):
+def _host_spec_batch(batch, t_spec=40):
+    """The host-spec feed of `_step_batch`'s audio, as the host-spec
+    collate lays it out: f32 wav [B, t_spec * hop, 1] and each row's host
+    spectrogram in spec [B, t_spec, bins]."""
+    b = len(batch["x"])
+    wav = np.zeros((b, t_spec * 256, 1), np.float32)
+    spec = np.zeros((b, t_spec, 513), np.float32)
+    lw = np.minimum(batch["wav_lengths"], t_spec * 256)
+    ls = np.zeros((b,), np.int32)
+    for i in range(b):
+        w = batch["wav"][i, :batch["wav_lengths"][i], 0] / 32768.0
+        sp = _spectrogram_host(w.astype(np.float32), 1024, 256, 1024)
+        ls[i] = min(len(sp), t_spec)
+        spec[i, :ls[i]] = sp[:ls[i]]
+        wav[i, :lw[i], 0] = w[:lw[i]]
+    return dict(batch, wav=wav, spec=spec, spec_lengths=ls,
+                wav_lengths=lw.astype(np.int32))
+
+
+@pytest.fixture(scope="module", params=["pcm", "host_spec"])
+def step_run(tmp_path_factory, request):
     """One JAX d_step + g_step and one port train_step from the same
-    weights, batch and draws (lr 10 and eps 10: see test_train_step)."""
+    weights, batch and draws (lr 10 and eps 10: see test_train_step), on
+    the feed of the param."""
     tmp = tmp_path_factory.mktemp("step")
     cfg_t, cfg_j = configs(p_dropout=0.0)
     params_g, model = make_weights(tmp, cfg_t, cfg_j)
@@ -374,6 +397,8 @@ def step_run(tmp_path_factory):
                    train=JTrainConfig(**train))
     cfg = Config(model=cfg_t, data=DataConfig(), train=TrainConfig(**train))
     batch = _step_batch()
+    if request.param == "host_spec":
+        batch = _host_spec_batch(batch)
 
     # JAX: the two programs of make_train_step
     synth, jdisc = JSynthesizer(cfg_j), JMPD()

@@ -132,7 +132,8 @@ def test_fp16_run_step_keeps_float32_master_weights(tmp_path):
                                                  fp16_run=True))
     assert config.train.fp16_run
     batcher = BucketedBatcher(TextAudioDataset(config.data.training_files,
-                                               config.data), 2)
+                                               config.data, device_spec=True),
+                              2)
     batch = {k: torch.from_numpy(v) for k, v in
              batcher.make_batch(*batcher.epoch_batches(0)[0]).items()}
     state = create_train_state(config, torch.device("cpu"), seed=0)
@@ -379,7 +380,8 @@ def test_prefetch_keeps_the_epoch_order(tmp_path, num_workers, depth):
 
     config = Config.from_json(write_tiny_dataset(str(tmp_path), n=8))
     batcher = BucketedBatcher(TextAudioDataset(config.data.training_files,
-                                               config.data), 2)
+                                               config.data, device_spec=True),
+                              2)
     for epoch in (0, 1):
         want = list(batcher.iter_epoch(epoch))
         got = list(device_prefetch(prefetch_epoch(batcher, epoch,
