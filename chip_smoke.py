@@ -59,6 +59,28 @@ Phases, one JSON line each:
            on train_data's pair (-n 4 --tts), eval_metrics, make_corpus and
            eval_vc (12-speaker config, random weights, 2 pairs),
            preprocess; exit codes 0 and finite scores
+  ddp      data-parallel training: two ranks spawned on cuda:0 over gloo
+           (tests/torch_port_dist_worker.py), the flagship at full width, 8
+           rows a rank (16 in all): a step on seeded global draws (lr 10,
+           eps 10, every dropout off) at the whole-step bars of the CPU
+           tests, with torch's own convolutions against the single-process
+           step on the 16 rows, and with cuDNN's deterministic algorithms
+           against the single-process sum of the two 8-row halves (cuDNN
+           picks other algorithms for 8 rows than for 16: the 16-row
+           step's distance is reported); then 3 timed steps at the
+           config's lr; checks the ranks' weights bit-equal after every
+           step, equal metrics, one MAS launch a rank a step; records each
+           rank's step ms (one card shared: not a scaling number), the ms
+           of an all-reduce of one buffer of every weight's bytes, outside
+           the steps; the training CLI under
+           `python -m torch.distributed.run --nproc_per_node 1` (NCCL,
+           world 1): exit 0, a pair, step 1 equal to the plain CLI's; and
+           the error NCCL gives two ranks on one card
+  tp       parallel.dryrun.dryrun_multichip(2) (DDP, two ranks sharing the
+           card over gloo), then one step of the 2-D sharding: two ranks on
+           cuda:0 over gloo as a (1 x 2) data x model mesh, FSDP2, the
+           dryrun's tiny model, held to the single-process step; the
+           sharded weights and moments counted as in the CPU tests
   serve    flagship config, seeded random weights: warmup() of the default
            (text, frame) bucket pairs; 8 requests of filelist lines whose
            token counts warmup did not run (per request tokens, buckets,
@@ -90,11 +112,15 @@ Phases, one JSON line each:
            weights: 8 noise-free requests (frames of each, correlation over
            the common length, RTF), each dtype's decoder on the same
            latents, a profiled request and a batch of 16 in each
+  serve_mesh SynthesisModule(mesh=[cuda:0, cuda:0]) against the single
+           device module: synthesize_batch of 16 seeded lines,
+           decode_chunks_batched and batched decode_spec_join of one latent,
+           each within atol 5e-4 (JAX's mesh bar); ms of each
 The serving phases run last, as the serving module pins cuDNN's
 deterministic algorithms for the process. Every phase's line carries its
 wall seconds. Then one {"kernels": [...]} line (launch counts from the
-forward, train, train_sdp, train_ms, eval_ms, train_cli, train_data and
-serving run,
+forward, train, train_sdp, train_ms, eval_ms, train_cli, train_data, ddp
+and tp run, the spawned ranks' own counts added, and serving,
 times, bounds;
 `launches` counts the first
 kernel of a port and `launches_by_kernel` each of its kernels: mas_bwd is
@@ -1711,6 +1737,19 @@ def run_feed(state, batcher, epoch, feeder=None):
     return steps
 
 
+def _first_nonfinite(feeds):
+    """The first step (in feed order) with a non-finite metric: its feed,
+    index there, its metrics and the step's before it; None if none."""
+    prev = None
+    for feed, steps in feeds.items():
+        for i, s in enumerate(steps):
+            if not all(math.isfinite(v) for v in s["metrics"].values()):
+                return {"feed": feed, "step": i, "metrics": s["metrics"],
+                        "previous": prev}
+            prev = s["metrics"]
+    return None
+
+
 def phase_train_data(root):
     """The flagship at full width and the config's own batch (64) fed from
     disk: a corpus of LJSpeech lines rendered to wavs (write_train_corpus,
@@ -1849,6 +1888,7 @@ def phase_train_data(root):
          upload_seconds=upload_s, warmup_step_ms=warm,
          feeds={k: summary(v) for k, v in feeds.items()},
          loss_g_mel=[s["metrics"]["loss/g/mel"] for s in all_steps],
+         first_nonfinite=_first_nonfinite(feeds),
          host_spec_vs_card=spec_gaps, peak_memory_bytes=peak,
          profile=profile, device_busy_share=profile["device_busy_share"],
          checks=checks)
@@ -2061,6 +2101,488 @@ def phase_serve_bf16():
         raise AssertionError(f"serve_bf16 checks failed: {failed}")
 
 
+DDP_ROWS = 8  # rows a rank: two ranks make the train phase's batch of 16
+DDP_STEPS = 3  # timed steps after the compared one
+DDP_SEED = 3  # the weights (the worker's seeded_state)
+# whole-step bars of the CPU parity tests (tests/test_torch_port_ddp.py):
+# lr 10 and eps 10 make the first AdamW update a smooth function of the
+# gradient, so the updated weights hold the gradients
+STEP_LOSS_REL, STEP_D_ATOL, STEP_G_REL = 1e-4, 1e-4, 2e-4
+# the cuDNN settings of the ddp phase's compared steps. With cuDNN off
+# (torch's own convolutions, which compute each row of a batch alone) the
+# step is held to the single-process step on all 16 rows. With cuDNN's
+# deterministic algorithms it is held to a single-process step that sums
+# the gradients of the two 8-row halves (`_accumulated_step`): cuDNN picks
+# its algorithms by batch size, so against the 16-row step, which it
+# computes with others, the decoder's resblock leaves differ by ~5e-4
+# (PERF.md); that reading is reported beside it
+DDP_COMPARE = ({"enabled": False}, {"enabled": True, "deterministic": True})
+# launches of the MAS kernels in the ranks this script spawns (each child
+# counts its own), added to the main path's counts
+CHILD_LAUNCHES = {}
+
+
+def _add_child_launches(ranks):
+    for r in ranks:
+        for k, v in r.get("launch_counts", {}).items():
+            CHILD_LAUNCHES[k] = CHILD_LAUNCHES.get(k, 0) + v
+
+
+def _dist_worker():
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_port_dist_worker
+
+    return torch_port_dist_worker
+
+
+def _compare_step(metrics, g, d, ref_metrics, ref_state, init_g):
+    """A distributed step's metrics and weights against the single-process
+    step's, at the whole-step bars: loss scalars relative, D leaves
+    max-abs, each G leaf's update (less its weight decay, lr 10) in
+    relative L2, outside dp.* and the leaves that get no gradient (the key
+    projections' biases, and at init every layer behind a zero-initialised
+    flow coupling's output conv). Returns (ok, the worst of each)."""
+    loss_rel = max(abs(metrics[k] - v) / max(abs(v), 1e-12)
+                   for k, v in ref_metrics.items() if k.startswith(
+                       ("loss/", "grad_norm")))
+    d_err = max(float((d[k].float().cpu() - v.float().cpu()).abs().max())
+                for k, v in ref_state.net_d.state_dict().items())
+    g_rel, g_worst, still, compared = 0.0, None, 0, 0
+    for k, v in ref_state.net_g.state_dict().items():
+        if k.startswith("dp."):
+            continue
+        p0 = init_g[k].double()
+        upd_ref = v.double().cpu() - 0.9 * p0
+        size = float(upd_ref.norm())
+        if size < 1e-6:
+            still += 1
+            continue
+        rel = float((g[k].double().cpu() - 0.9 * p0 - upd_ref).norm()) / size
+        if rel > g_rel:
+            g_rel, g_worst = rel, k
+        compared += 1
+    worst = {"loss_rel": loss_rel, "d_max_abs": d_err,
+             "g_update_rel_l2": g_rel, "g_worst_leaf": g_worst,
+             "g_leaves_compared": compared,
+             "g_leaves_without_gradient": still}
+    return (loss_rel <= STEP_LOSS_REL and d_err <= STEP_D_ATOL
+            and g_rel <= STEP_G_REL and compared >= 100), worst
+
+
+def _cudnn(setting):
+    """cuDNN set as `setting` ({"enabled", "deterministic"}) with TF32 off:
+    flags() would turn cuDNN's TF32 on unless told not to."""
+    import torch
+
+    return torch.backends.cudnn.flags(
+        enabled=setting.get("enabled", True),
+        deterministic=setting.get("deterministic", False),
+        benchmark=False, allow_tf32=False)
+
+
+def _single_step(cfg, seed, batch, draws, cudnn):
+    """The single-process step on the whole batch, from the ranks' weights
+    (the worker's `seeded_state`) and the same draws, under the cuDNN
+    setting `cudnn`."""
+    from mb_istft_vits_torch.train import step as tstep
+
+    state = _dist_worker().seeded_state(cfg, "cuda", seed, dp_dropout=0.0)
+    with _cudnn(cudnn):
+        metrics = {k: float(v) for k, v in tstep.train_step(
+            state, {k: v.cuda() for k, v in batch.items()},
+            tstep.StepDraws(*(None if v is None else v.cuda()
+                              for v in draws))).items()}
+    return state, metrics
+
+
+def _accumulated_step(cfg, seed, batch, draws, cudnn, parts=2):
+    """The data-parallel step's arithmetic in one process: the batch in
+    `parts` equal parts, each part's forward and backward on its rows
+    alone, their gradients summed at 1/parts each (the KL and duration
+    terms at the global batch's normalisation, as the ranks scale them),
+    then one AdamW step per net; the metrics are the parts' means, as the
+    ranks log them. Same weights, draws and cuDNN setting as
+    `_single_step`."""
+    import torch
+
+    from mb_istft_vits_torch.train import step as tstep
+
+    state = _dist_worker().seeded_state(cfg, "cuda", seed, dp_dropout=0.0)
+    batch = tstep.prep_batch({k: v.cuda() for k, v in batch.items()}, cfg)
+    rows = batch["x"].shape[0] // parts
+    halves = [{k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+              for i in range(parts)]
+    draws = [tstep.StepDraws(*(None if v is None else
+                               v[i * rows:(i + 1) * rows].cuda()
+                               for v in draws)) for i in range(parts)]
+
+    def update(optim, params, clip=None):
+        norm = torch.linalg.vector_norm(torch.stack(
+            [p.grad.norm() for p in params if p.grad is not None]))
+        tstep.optimizer_step(optim, params, state.learning_rate(), clip)
+        return float(norm)
+
+    with _cudnn(cudnn):
+        outs = [tstep.g_forward(state, h, d) for h, d in zip(halves, draws)]
+        ys = [tstep.real_slice(state, h, o[4]) for h, o in zip(halves, outs)]
+        state.optim_d.zero_grad()
+        loss_d = 0.0
+        for y, o in zip(ys, outs):
+            loss = tstep.d_loss(state, y, o[0].transpose(1, 2)) / parts
+            loss.backward()
+            loss_d += float(loss)
+        metrics = {"loss/d/total": loss_d, "grad_norm_d": update(
+            state.optim_d, list(state.net_d.parameters()))}
+        sums = [torch.stack([o[5].float().sum(), o[6].float().sum()])
+                for o in outs]
+        total_sums = sum(sums)
+        state.optim_g.zero_grad()
+        for h, o, y, local in zip(halves, outs, ys, sums):
+            losses = tstep.g_losses(state, h, o, y)
+            scale = parts * local / total_sums
+            losses["loss/g/dur"] = losses["loss/g/dur"] * scale[0]
+            losses["loss/g/kl"] = losses["loss/g/kl"] * scale[1]
+            losses["loss/g/total"] = sum(losses.values())
+            (losses["loss/g/total"] / parts).backward()
+            for k, v in losses.items():
+                metrics[k] = metrics.get(k, 0.0) + float(v) / parts
+        metrics["grad_norm_g"] = update(
+            state.optim_g, list(state.net_g.parameters()),
+            cfg.train.grad_clip_value)
+    return state, metrics
+
+
+def _draws(cfg, batch, seed):
+    """Seeded global draws of a batch: posterior noise and slice starts."""
+    import torch
+
+    from mb_istft_vits_torch.train import step as tstep
+
+    d = cfg.data
+    gen = torch.Generator().manual_seed(seed)
+    t_spec = (batch["wav"].shape[1] - (d.filter_length - d.hop_length)) \
+        // d.hop_length
+    b = batch["x"].shape[0]
+    eps = torch.randn(b, t_spec, cfg.model.inter_channels, generator=gen)
+    top = torch.clamp(batch["spec_lengths"].cpu().long()
+                      - cfg.train.segment_size // d.hop_length + 1, min=1)
+    ids = (torch.rand(b, generator=gen) * top).to(torch.int32)
+    return tstep.StepDraws(eps, ids)
+
+
+def _torchrun_cli(cfg, cwd, name, steps):
+    """Start the training CLI under `python -m torch.distributed.run
+    --nproc_per_node 1` on the card (NCCL, world 1); its Popen, output
+    merged into stdout."""
+    from mb_istft_vits_torch.parallel import dryrun
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    port = str(dryrun.free_port())
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         "1", "--master_port", port, "-m", "mb_istft_vits_torch.train",
+         "-c", cfg, "-m", name, "--max-steps", str(steps)],
+        cwd=cwd, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _logged_steps(model_dir):
+    with open(os.path.join(model_dir, "train.log")) as f:
+        return {int(m.group(1)): json.loads(m.group(2)) for m in
+                re.finditer(r"step (\d+): (\{.*\})", f.read())}
+
+
+def phase_ddp(root):
+    """Data-parallel training on the one card: two ranks spawned on cuda:0
+    over gloo (tests/torch_port_dist_worker.py), the flagship at full
+    width, DDP_ROWS rows a rank (the train phase's 16 in all): a compared
+    step for each cuDNN setting of DDP_COMPARE, on seeded global draws at
+    lr 10 / eps 10 with every dropout off, each held to the whole-step
+    bars: with cuDNN off against the single-process step on the whole
+    batch, with cuDNN deterministic against the single-process sum of the
+    two 8-row halves (the 16-row step's distance reported beside it);
+    then DDP_STEPS timed steps at the config's lr from the same weights.
+    Checks the ranks' weights bit-equal after every step, equal metrics,
+    one MAS launch a rank a step. Records each rank's step ms (both ranks
+    share the card: not a scaling number), and the ms of an all-reduce of
+    one buffer of every weight's bytes, on its own outside the steps. Then
+    the CLI under torchrun at world 1 (NCCL) against the same CLI run
+    plainly, and what NCCL says to two ranks on one card."""
+    import concurrent.futures
+    import dataclasses
+
+    import torch
+
+    from mb_istft_vits_torch.config import Config
+    from mb_istft_vits_torch.parallel.dryrun import tiny_batch, tiny_config
+    from mb_istft_vits_torch.train import checkpoint
+    from mb_istft_vits_torch.train.__main__ import main as train_main
+
+    worker = _dist_worker()
+    from torch_port_data import write_tiny_dataset
+
+    cfg = Config.from_json(CONFIG)
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, p_dropout=0.0),
+        train=dataclasses.replace(cfg.train, batch_size=DDP_ROWS))
+    cmp_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, learning_rate=10.0, eps=10.0))
+    init = worker.seeded_state(cfg, "cpu", DDP_SEED)
+    g0 = {k: v.clone() for k, v in init.net_g.state_dict().items()}
+    del init
+    batch = {k: v.cpu() for k, v in
+             train_batch(cfg, 2 * DDP_ROWS, seed=4).items()}
+    draws = _draws(cfg, batch, seed=5)
+    # the CLI under torchrun, world 1 over NCCL, while this process takes
+    # the single-process steps (it is done before the ranks start)
+    cli_root = os.path.join(root, "ddp_cli")
+    os.makedirs(cli_root)
+    cli_cfg = write_tiny_dataset(cli_root)
+    t1 = time.perf_counter()
+    torchrun = _torchrun_cli(cli_cfg, cli_root, "nccl", 3)
+    try:
+        singles = [_single_step(cmp_cfg, DDP_SEED, batch, draws, c)
+                   for c in DDP_COMPARE]
+        halves = _accumulated_step(cmp_cfg, DDP_SEED, batch, draws,
+                                   DDP_COMPARE[1])
+        out_nccl = torchrun.communicate(timeout=300)[0]
+    finally:
+        if torchrun.poll() is None:
+            torchrun.kill()
+            torchrun.wait()
+    rc_nccl, torchrun_s = torchrun.returncode, time.perf_counter() - t1
+    out = os.path.join(root, "ddp")
+    nccl_out = os.path.join(root, "nccl_two")
+    os.makedirs(out)
+    os.makedirs(nccl_out)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # NCCL binds each rank to its card at init: two ranks on one card
+        # fail there, seconds before the gloo ranks reach their steps
+        nccl_try = pool.submit(worker.launch, dict(
+            world=2, device="cuda:0", backend="nccl", timeout=60,
+            cfg=tiny_config(), seed=0, batch=tiny_batch(2), draws=None),
+            nccl_out, 120)
+        ranks = worker.launch(dict(
+            world=2, device="cuda:0", backend="gloo", timeout=300,
+            cfg=cmp_cfg, seed=DDP_SEED, batch=batch, draws=draws,
+            dp_dropout=0.0, compare=DDP_COMPARE, steps=DDP_STEPS,
+            restart=cfg), out, 600)
+        try:
+            nccl_try.result()
+            nccl = {"refused": False, "error": None}
+        except RuntimeError as e:
+            lines = [ln for ln in str(e).splitlines()
+                     if "Duplicate GPU" in ln or "Error" in ln]
+            nccl = {"refused": True, "error": lines[-3:]}
+    ranks_s = time.perf_counter() - t0
+    _add_child_launches(ranks)
+    r0, r1 = ranks
+    compared = [_compare_step(r0["compared"][i]["metrics"], r0["g"][i],
+                              r0["d"][i], metrics, state, g0)
+                for i, (state, metrics) in enumerate(singles)]
+    # the deterministic step against the two 8-row halves summed, and
+    # those halves against the 16 rows at once
+    vs_halves = _compare_step(r0["compared"][1]["metrics"], r0["g"][1],
+                              r0["d"][1], halves[1], halves[0], g0)
+    halves_vs_whole = _compare_step(
+        halves[1], halves[0].net_g.state_dict(),
+        halves[0].net_d.state_dict(), singles[1][1], singles[1][0], g0)
+    del singles, halves
+    torch.cuda.empty_cache()
+    timed = {r["rank"]: [s["host_ms"] for s in r["steps"]] for r in ranks}
+    all_steps = [r["compared"] + r["steps"] for r in ranks]
+
+    # the same CLI plainly, in this process
+    cwd = os.getcwd()
+    os.chdir(cli_root)
+    try:
+        rc_plain = train_main(["-c", cli_cfg, "-m", "plain", "--max-steps",
+                               "3"])
+    finally:
+        os.chdir(cwd)
+    logs = {n: _logged_steps(os.path.join(cli_root, "logs", n))
+            for n in ("nccl", "plain")}
+    with open(os.path.join(cli_root, "logs", "nccl", "train.log")) as f:
+        nccl_log = f.read()
+    rel = {s: max(abs(logs["nccl"][s][k] - v) / max(abs(v), 1e-12)
+                  for k, v in logs["plain"][s].items()
+                  if k != "steps_per_sec")
+           for s in logs["plain"] if s in logs["nccl"]}
+    checks = {
+        # see DDP_COMPARE
+        "step_matches_single_process": compared[0][0],
+        "deterministic_step_matches_two_8_row_halves": vs_halves[0],
+        "ranks_bit_identical_every_step": all(
+            a["digest"] == b["digest"] for a, b in zip(*all_steps)),
+        "metrics_equal_across_ranks": all(
+            a["metrics"] == b["metrics"] for a, b in zip(*all_steps)),
+        "mas_once_per_rank_per_step": all(
+            s["mas_launches"] == 1 for steps in all_steps for s in steps),
+        "timed_steps_finite": all(math.isfinite(v) for r in ranks
+                                  for s in r["steps"]
+                                  for v in s["metrics"].values()),
+        "torchrun_nccl_world_1_exit_0_with_a_pair": rc_nccl == 0
+        and checkpoint.saved_steps(os.path.join(
+            cli_root, "logs", "nccl"))[-1:] == [3]
+        and "process group: 1 rank(s) over nccl" in nccl_log,
+        "plain_cli_exit_0": rc_plain == 0,
+        "world_1_step_1_equals_plain": sorted(rel) == [1, 2, 3]
+        and rel[1] <= STEP_LOSS_REL,
+    }
+    emit("ddp", ranks=2, rows_per_rank=DDP_ROWS, global_batch=2 * DDP_ROWS,
+         backend="gloo", device="cuda:0 (both ranks: one card shared, so "
+         "the step times are not a scaling number)",
+         step_ms_per_rank=timed,
+         step_ms_median_per_rank={r: statistics.median(v)
+                                  for r, v in timed.items()},
+         compared_step_ms_per_rank={r["rank"]: [s["host_ms"] for s in
+                                                r["compared"]]
+                                    for r in ranks},
+         allreduce_ms=r0["allreduce_ms"],
+         allreduce_bytes_per_step=r0["allreduce_bytes"],
+         compared={json.dumps(c): worst for c, (_, worst) in
+                   zip(DDP_COMPARE, compared)},
+         deterministic_vs_two_8_row_halves=vs_halves[1],
+         two_8_row_halves_vs_16_rows_deterministic=halves_vs_whole[1],
+         ranks_seconds=ranks_s, nccl_two_ranks_one_card=nccl,
+         torchrun_world_1={"exit_code": rc_nccl, "seconds": torchrun_s,
+                           "metrics_rel_to_plain_by_step": rel,
+                           "tail": out_nccl[-400:]},
+         checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"ddp checks failed: {failed}")
+
+
+def phase_tp():
+    """`parallel.dryrun.dryrun_multichip(2)` on the card (two DDP ranks
+    sharing cuda:0 over gloo) and, beside it, one step of the 2-D sharding
+    (`parallel.tp`): two ranks on cuda:0 over gloo as a (1 x 2) data x
+    model mesh, both nets under FSDP2, the dryrun's tiny model, held to the
+    single-process step (the ddp phase's bars); counts the sharded weights
+    and the moments that carry their placement."""
+    import dataclasses
+
+    import torch
+
+    from mb_istft_vits_torch.parallel import param_shardings
+    from mb_istft_vits_torch.parallel.dryrun import (
+        dryrun_multichip,
+        tiny_batch,
+        tiny_config,
+    )
+    from mb_istft_vits_torch.weights import load_generator_pth
+
+    import concurrent.futures
+
+    worker = _dist_worker()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    t0 = time.perf_counter()
+    # its two ranks run beside the 2-D step's two, all on the card
+    dry_run = pool.submit(dryrun_multichip, 2, device="cuda")
+    cfg = tiny_config()
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, p_dropout=0.0),
+        train=dataclasses.replace(cfg.train, learning_rate=10.0, eps=10.0,
+                                  batch_size=2))
+    g0 = {k: v.clone() for k, v in worker.seeded_state(
+        cfg, "cpu", 0).net_g.state_dict().items()}
+    batch = tiny_batch(2)
+    draws = _draws(cfg, batch, seed=6)
+    tp_cudnn = {"enabled": True, "deterministic": True}
+    single, single_metrics = _single_step(cfg, 0, batch, draws, tp_cudnn)
+    with tempfile.TemporaryDirectory() as out:
+        ranks = worker.launch(dict(
+            world=2, n_model=2, device="cuda:0", backend="gloo", timeout=300,
+            cfg=cfg, seed=0, batch=batch, draws=draws,
+            dp_dropout=0.0, compare=[tp_cudnn]), out, 600)
+        g = load_generator_pth(os.path.join(out, "G_1.pth"))
+        d = torch.load(os.path.join(out, "D_1.pth"), weights_only=True)[
+            "model"]
+    t1 = time.perf_counter()
+    dry = dry_run.result()
+    pool.shutdown()
+    t2 = time.perf_counter()
+    _add_child_launches(ranks + dry["ranks"])
+    ok_step, worst = _compare_step(ranks[0]["compared"][0]["metrics"], g, d,
+                                   single_metrics, single, g0)
+    want = {f"{p}.{k}": dim for p, net in (("g", single.net_g),
+                                           ("d", single.net_d))
+            for k, dim in param_shardings(net, 2).items() if dim is not None}
+    sharded = ranks[0]["sharded"]
+    conv_dim0 = [k for k, dim in want.items() if dim == 0
+                 and k.endswith(("weight", "weight_v"))]
+    checks = {
+        "dryrun_ok": dry["backend"] == "gloo" and dry["kind"] == "data=2",
+        "step_matches_single_process": ok_step,
+        "ranks_bit_identical": ranks[0]["compared"][0]["digest"]
+        == ranks[1]["compared"][0]["digest"],
+        "sharded_as_param_shardings": sorted(sharded) == sorted(want),
+        "ten_conv_weights_on_dim_0": len(conv_dim0) >= 10,
+        "moments_carry_the_placement": ranks[0]["moments"] == sharded,
+        "mas_once_per_rank": all(r["compared"][0]["mas_launches"] == 1
+                                 for r in ranks),
+    }
+    emit("tp", dryrun=dict(dry, seconds=t2 - t0),
+         mesh="data 1 x model 2, gloo, both ranks on cuda:0 (gloo runs "
+              "FSDP2's c10d collectives on CUDA tensors; chosen, not a "
+              "fallback)", seconds_2d=t1 - t0,
+         sharded_weights=len(sharded), conv_weights_dim_0=len(conv_dim0),
+         sharded_moments=2 * len(ranks[0]["moments"]),
+         step_ms_per_rank={r["rank"]: r["compared"][0]["host_ms"]
+                           for r in ranks},
+         worst=worst, checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"tp checks failed: {failed}")
+
+
+def phase_serve_mesh():
+    """The serving mesh: `SynthesisModule(mesh=[cuda:0, cuda:0])` (two mesh
+    positions on the one card, sharing its replica) against the
+    single-device module, the same seeded weights: synthesize_batch of
+    SERVE_BATCH lines with seeded noise, decode_chunks_batched and
+    batched decode_spec_join of one latent; within JAX's mesh bar
+    (tests/test_infer.py:277, atol 5e-4); ms of each, warm."""
+    import numpy as np
+
+    from mb_istft_vits_torch.infer.synthesis import SynthesisModule
+
+    single = SynthesisModule(CONFIG, seed=0, device="cuda")
+    mesh = SynthesisModule(CONFIG, seed=0, mesh=["cuda:0", "cuda:0"])
+    texts = _texts(SERVE_BATCH)
+    z, _, _ = single.prepare_shared_latents(texts[0], seed=3)
+    runs = {
+        "synthesize_batch": lambda m: m.synthesize_batch(texts, seed=7)[0],
+        "decode_chunks_batched": lambda m: [m.decode_chunks_batched(z)],
+        "decode_spec_join": lambda m: [m.decode_spec_join(z, batched=True)],
+    }
+    ms, err = {}, {}
+    for name, fn in runs.items():
+        outs = {}
+        for label, m in (("single", single), ("mesh", mesh)):
+            fn(m)  # first call per shape
+            t0 = time.perf_counter()
+            outs[label] = fn(m)
+            ms[f"{name}_{label}"] = (time.perf_counter() - t0) * 1e3
+        a, b = outs["single"], outs["mesh"]
+        err[name] = (max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+                     if len(a) == len(b) and all(
+                         x.shape == y.shape for x, y in zip(a, b))
+                     else float("inf"))
+    checks = {f"{k}_within_5e-4": v <= 5e-4 for k, v in err.items()}
+    checks["two_positions_one_replica"] = (
+        len(mesh._replicas) == 2
+        and mesh._replicas[0][1] is mesh._replicas[1][1])
+    emit("serve_mesh", mesh=["cuda:0", "cuda:0"], batch=SERVE_BATCH, ms=ms,
+         max_abs_err=err, checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"serve_mesh checks failed: {failed}")
+
+
 def main() -> int:
     smi = run_phase(phase_device)
     sys.path.insert(0, REPO)
@@ -2090,6 +2612,9 @@ def main() -> int:
         trained = run_phase(phase_train_data, root)
         torch.cuda.empty_cache()
         run_phase(phase_tools, root, trained)
+        torch.cuda.empty_cache()
+        run_phase(phase_ddp, root)
+        run_phase(phase_tp)
         # last: the serving modules pin cuDNN's deterministic algorithms
         # for the rest of the process
         run_phase(phase_serve)
@@ -2097,7 +2622,10 @@ def main() -> int:
         run_phase(phase_serve_istft)
         run_phase(phase_serve_sdp, root)
         run_phase(phase_serve_bf16)
+        run_phase(phase_serve_mesh)
     launches = dict(mas.launch_counts)
+    for k, v in CHILD_LAUNCHES.items():  # the spawned ranks' own counts
+        launches[k] += v
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"main path launched no {missing}")

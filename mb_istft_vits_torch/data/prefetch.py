@@ -94,7 +94,8 @@ def device_prefetch(batches: Iterable[Dict[str, np.ndarray]],
 
     def put(host):
         pinned = {k: torch.from_numpy(v).pin_memory() for k, v in host.items()}
-        with torch.cuda.stream(side):
+        # the copy and its event on `device`, whichever card is current
+        with torch.cuda.device(device), torch.cuda.stream(side):
             on_card = {k: v.to(device, non_blocking=True)
                        for k, v in pinned.items()}
             ready = torch.cuda.Event()

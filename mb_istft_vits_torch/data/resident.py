@@ -11,8 +11,10 @@ those of `BucketedBatcher.make_batch`, bit for bit, in shape, dtype and
 content. The reference has no counterpart: its DataLoader
 (train_latest.py:85) copies every batch over PCIe every step.
 
-One process and one card: a mesh of more than one device raises
-(ROADMAP Queue 1 item 9.3).
+Data parallel (one process per card, as in JAX's multi-host run): every
+rank uploads the whole pools to its own card and, of each batch of the
+global sequence (`epoch_batches_global`), gathers its own rows, so only
+this rank's index vector crosses. `corpus_bytes` is per card, as in JAX.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import numpy as np
 import torch
 
 from mb_istft_vits_torch.data.dataset import BucketedBatcher
-from mb_istft_vits_torch.device import require_one_device, resolve_device
+from mb_istft_vits_torch.device import resolve_device
+from mb_istft_vits_torch.parallel.mesh import mesh_size
 
 # the per-row int32 scalars, one [n, 4] table per pool; sid is 0 for a
 # single-speaker corpus and left out of its batches
@@ -36,7 +39,12 @@ class DeviceResidentFeeder:
     asked for), padded as `make_batch` pads a batch row, so
     `gather(bucket, indices)` gives the host batch bit for bit. Needs the
     dataset's device-spec feed (int16 PCM): host-spec f32 pools would hold
-    the spectrograms too, several times the bytes."""
+    the spectrograms too, several times the bytes.
+
+    The batcher's `rank` of `num_replicas` picks the rows this process
+    gathers. `mesh`, for JAX's callers: the data-parallel devices, one
+    per rank (None, or one device, for one process); the pools go to
+    `device`, this rank's card."""
 
     def __init__(self, batcher: BucketedBatcher, mesh=None,
                  logger: Optional[logging.Logger] = None, *,
@@ -46,7 +54,11 @@ class DeviceResidentFeeder:
                 "DeviceResidentFeeder requires device-spec feeding (int16 "
                 "PCM pools; host-spec f32 pools would be several times the "
                 "bytes)")
-        require_one_device(mesh, "DeviceResidentFeeder")
+        if mesh_size(mesh) not in (1, batcher.num_replicas):
+            raise ValueError(
+                f"a mesh of {mesh_size(mesh)} devices for "
+                f"{batcher.num_replicas} ranks: each rank (process) feeds "
+                f"its own card")
         self.batcher = batcher
         self.device = resolve_device(device)
         # dataset index -> row of its bucket's pool
@@ -115,9 +127,13 @@ class DeviceResidentFeeder:
         return batch
 
     def iter_epoch(self, epoch: int) -> Iterator[Dict[str, torch.Tensor]]:
-        """The device-resident `BucketedBatcher.iter_epoch`."""
-        for bucket_idx, indices in self.batcher.epoch_batches(epoch):
-            yield self.gather(bucket_idx, indices)
+        """The device-resident `BucketedBatcher.iter_epoch`: of every
+        global batch, this rank's rows [r * B:(r + 1) * B] (with one rank,
+        the whole batch)."""
+        b = self.batcher
+        lo = b.rank * b.batch_size
+        for bucket_idx, indices in b.epoch_batches_global(epoch):
+            yield self.gather(bucket_idx, indices[lo:lo + b.batch_size])
 
     @staticmethod
     def corpus_bytes(batcher: BucketedBatcher) -> int:

@@ -29,24 +29,3 @@ def disable_tf32() -> None:
     to against the JAX reference."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-
-def mesh_size(mesh) -> int:
-    """Devices in `mesh`: None is one; else its `size` (an int, or a method
-    as on `torch.distributed.DeviceMesh`), or its length (a device list)."""
-    if mesh is None:
-        return 1
-    size = getattr(mesh, "size", None)
-    if callable(size):
-        size = size()
-    return int(len(mesh) if size is None else size)
-
-
-def require_one_device(mesh, what: str) -> None:
-    """A mesh of one device (or None) runs as no mesh, by the JAX
-    package's `mesh.size > 1` rule; a larger one raises."""
-    if mesh_size(mesh) > 1:
-        raise NotImplementedError(
-            f"{what}: a mesh of {mesh_size(mesh)} devices is not ported yet "
-            "(ROADMAP Queue 1 item 9.3: DDP and the serving mesh); pass "
-            "mesh=None")

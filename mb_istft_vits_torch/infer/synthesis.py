@@ -36,15 +36,24 @@ iSTFT, the sub-band synthesis, the resampler and the PCM) run in float32:
 `torch.istft` has no bfloat16 on the card, where the JAX package runs
 its iSTFT and PQMF as bf16 matmuls.
 
-Not ported: the serving mesh (a `mesh` of more than one device raises;
-ROADMAP item 9.3) and Orbax checkpoints (the port reads reference `.pth`
-files). `aot_cache_dir` is accepted and unused: eager PyTorch compiles
-no executables to cache.
+The serving mesh (`mesh`, a list of devices): one replica of the
+generator per device, and `synthesize_batch`, `decode_chunks_batched`
+and batched `decode_spec_join` split their rows evenly over the replicas
+(JAX shards the same batches over its mesh's "data" axis). Every
+device's work is queued before the first copy back, so the cards
+overlap. The noise is drawn once for the whole batch, on the first
+device, and sliced by row, so a row's audio does not depend on the mesh,
+as in JAX, where the noise is one global draw that is then sharded.
+
+Not ported: Orbax checkpoints (the port reads reference `.pth` files).
+`aot_cache_dir` is accepted and unused: eager PyTorch compiles no
+executables to cache.
 """
 
 from __future__ import annotations
 
 import bisect
+import copy
 import math
 import time
 from collections import OrderedDict
@@ -55,13 +64,14 @@ import numpy as np
 import torch
 
 from mb_istft_vits_torch.config import Config
-from mb_istft_vits_torch.device import (
-    disable_tf32,
-    require_one_device,
-    resolve_device,
-)
+from mb_istft_vits_torch.device import disable_tf32, resolve_device
 from mb_istft_vits_torch.dsp.resample import resample_poly_torch
 from mb_istft_vits_torch.models import Synthesizer
+from mb_istft_vits_torch.parallel.mesh import (
+    mesh_devices,
+    mesh_size,
+    shard_batch,
+)
 from mb_istft_vits_torch.text import frontend_ids, get_symbols
 from mb_istft_vits_torch.weights import load_generator_pth
 
@@ -106,11 +116,14 @@ class SynthesisModule:
     package's (config_path, checkpoint_path, params, seed, compute_dtype,
     mesh, aot_cache_dir); `device` is the port's own and keyword-only.
 
-    `mesh`: None, or a mesh or device list of one device, serves on one
-    device (JAX's `mesh.size > 1` rule); a larger one raises
-    NotImplementedError. `aot_cache_dir`: accepted for JAX's callers and
-    not used (nothing is compiled ahead of time in eager PyTorch; JAX
-    itself ignores it where its cache is unusable or a mesh is set)."""
+    `mesh`: None, or a list of one device, serves on one device (JAX's
+    `mesh.size > 1` rule); a list of more (`parallel.create_mesh(n)`, or
+    the same card twice) keeps a replica of the generator on each and fans
+    batches out over them; `device` then defaults to the mesh's first,
+    which holds the noise generator. `aot_cache_dir`: accepted for JAX's
+    callers and not used (nothing is compiled ahead of time in eager
+    PyTorch; JAX itself ignores it where its cache is unusable or a mesh
+    is set)."""
 
     TEXT_BUCKETS = (32, 64, 128, 192, 256, 384)
     FRAME_BUCKETS = (128, 192, 256, 384, 512, 768, 1024, 1536, 2048)
@@ -131,14 +144,12 @@ class SynthesisModule:
                 and compute_dtype.is_floating_point):
             raise TypeError(f"compute_dtype must be a floating torch.dtype, "
                             f"not {compute_dtype!r}")
-        require_one_device(mesh, "SynthesisModule")
-        self.mesh = None
+        mesh = mesh_devices(mesh) if mesh_size(mesh) > 1 else None
+        self.mesh = mesh
         self.aot_cache_dir = aot_cache_dir
-        dev = resolve_device(device)
-        if dev.type == "cuda" and dev.index is None:
-            # an explicit index: worker threads must not depend on their
-            # own current device
-            dev = torch.device("cuda", torch.cuda.current_device())
+        if mesh is not None and device is None:
+            device = mesh[0]
+        dev = self._indexed(resolve_device(device))
         self.device = dev
         if dev.type == "cuda":
             disable_tf32()
@@ -166,6 +177,16 @@ class SynthesisModule:
                             *model.named_buffers()]:
                 if v.is_floating_point() and not name.startswith(keep):
                     v.data = v.data.to(compute_dtype)
+        # (device, model) of each mesh position; positions on one device
+        # share its replica
+        self._replicas = [(dev, self.model)]
+        if mesh is not None:
+            on = {dev: self.model}
+            self._replicas = []
+            for d in map(self._indexed, mesh):
+                if d not in on:
+                    on[d] = copy.deepcopy(self.model).to(d)
+                self._replicas.append((d, on[d]))
         self.hop_length = self.data_cfg.hop_length
         self.sampling_rate = self.data_cfg.sampling_rate
         # unseeded requests draw from this stream, in call order
@@ -181,17 +202,35 @@ class SynthesisModule:
     # ------------------------------------------------------------------
     # host <-> device
     # ------------------------------------------------------------------
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        """numpy -> tensor on the device; on CUDA through pinned memory,
-        without waiting for the work already queued."""
+    @staticmethod
+    def _indexed(dev: torch.device) -> torch.device:
+        """A CUDA device with an explicit index: worker threads must not
+        depend on their own current device."""
+        dev = torch.device(dev)
+        if dev.type == "cuda" and dev.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return dev
+
+    def _to_device(self, a: np.ndarray,
+                   device: Optional[torch.device] = None) -> torch.Tensor:
+        """numpy -> tensor on `device` (the module's by default); on CUDA
+        through pinned memory, without waiting for the work already
+        queued."""
+        device = device or self.device
         t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type != "cuda":
+        if device.type != "cuda":
             return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return t.pin_memory().to(device, non_blocking=True)
 
     def _latents_to_device(self, z: np.ndarray) -> torch.Tensor:
         """Host latents (float32) -> the device, in the compute dtype."""
         return self._to_device(z).to(self.compute_dtype)
+
+    def _shard(self, batch):
+        """`batch` (tensors on the first device) split evenly by rows over
+        the mesh positions: part i on position i's device (`shard_batch`;
+        without a mesh, one part)."""
+        return shard_batch(batch, [dev for dev, _ in self._replicas])
 
     def _fetch(self, tensors: Sequence[torch.Tensor]
                ) -> Callable[[], List[np.ndarray]]:
@@ -209,16 +248,21 @@ class SynthesisModule:
                  for t in tensors]
         for h, t in zip(hosts, tensors):
             h.copy_(t, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
+        done = []
+        for dev in dict.fromkeys(t.device for t in tensors):
+            with torch.cuda.device(dev):
+                done.append(torch.cuda.Event())
+                done[-1].record(torch.cuda.current_stream(dev))
 
         def wait() -> List[np.ndarray]:
-            done.synchronize()
+            for ev in done:
+                ev.synchronize()
             return [h.numpy() for h in hosts]
 
         return wait
 
-    def _sid_rows(self, n: int, sid: Optional[int]
+    def _sid_rows(self, n: int, sid: Optional[int],
+                  device: Optional[torch.device] = None
                   ) -> Optional[torch.Tensor]:
         """Speaker ids [n] on the device for `n` rows of one speaker
         (`None`: speaker 0), or None when the model has no speakers
@@ -226,7 +270,7 @@ class SynthesisModule:
         if self.cfg.n_speakers <= 0:
             return None
         return self._to_device(np.full((n,), 0 if sid is None else int(sid),
-                                       np.int64))
+                                       np.int64), device)
 
     def _rng(self, seed: Optional[int]) -> torch.Generator:
         """A generator freshly seeded with `seed` (so equal seeds give
@@ -235,61 +279,63 @@ class SynthesisModule:
             return self._generator
         return torch.Generator(self.device).manual_seed(int(seed))
 
-    def _draws(self, x: torch.Tensor, seed: Optional[int]
+    def _draws(self, shape: Sequence[int], seed: Optional[int]
                ) -> Tuple[torch.Generator, Optional[torch.Tensor]]:
-        """(generator, w_eps) of one request on the padded ids x [B, T_x]:
-        the stochastic duration predictor's noise [B, T_x, 2] is the
-        generator's first draw (None without that predictor), the prior's
-        noise comes after it. A seeded request gets the same pair on every
-        call."""
+        """(generator, w_eps) of one request on padded ids of `shape`
+        [B, T_x]: the stochastic duration predictor's noise [B, T_x, 2] is
+        the generator's first draw (None without that predictor), the
+        prior's noise comes after it. A seeded request gets the same pair
+        on every call."""
         gen = self._rng(seed)
         if not self.cfg.use_sdp:
             return gen, None
-        return gen, torch.randn((x.shape[0], x.shape[1], 2), generator=gen,
+        return gen, torch.randn((shape[0], shape[1], 2), generator=gen,
                                 device=self.device)
 
     # ------------------------------------------------------------------
     # model calls
     # ------------------------------------------------------------------
     def _predict_frames(self, x, x_lengths, sid, length_scale,
-                        noise_scale_w, w_eps) -> torch.Tensor:
+                        noise_scale_w, w_eps, model=None) -> torch.Tensor:
         with torch.no_grad():
-            return self.model.predict_frames(
+            return (model or self.model).predict_frames(
                 x, x_lengths, sid, length_scale=length_scale,
                 noise_scale_w=noise_scale_w, w_eps=w_eps)
 
     def _infer(self, x, x_lengths, sid, noise_scale, length_scale,
                noise_scale_w, max_frames, generator, w_eps,
-               out_sr: Optional[int] = None):
+               out_sr: Optional[int] = None, eps=None, model=None):
         """sid: device ids [B] or None -> (InferOutput, int16 PCM
         [B, T_wav(out_sr)] on the device)."""
         with torch.no_grad():
-            out = self.model.infer(x, x_lengths, sid, noise_scale=noise_scale,
-                                   length_scale=length_scale,
-                                   noise_scale_w=noise_scale_w,
-                                   max_frames=max_frames, w_eps=w_eps,
-                                   generator=generator)
+            out = (model or self.model).infer(
+                x, x_lengths, sid, noise_scale=noise_scale,
+                length_scale=length_scale, noise_scale_w=noise_scale_w,
+                max_frames=max_frames, eps=eps, w_eps=w_eps,
+                generator=generator)
             o = out.o
             if out_sr is not None and out_sr != self.sampling_rate:
                 o = resample_poly_torch(o, self.sampling_rate, out_sr)
             return out, _pcm16(o)
 
-    def _decode_pcm(self, windows: np.ndarray, sid: Optional[int] = None
-                    ) -> torch.Tensor:
-        """z windows [N, T, C] (host) of speaker `sid` -> int16 PCM
-        [N, T * hop] (device)."""
+    def _decode_pcm(self, z: torch.Tensor, sid: Optional[int] = None,
+                    replica: int = 0) -> torch.Tensor:
+        """z windows [N, T, C] of speaker `sid`, on the device of mesh
+        position `replica` -> int16 PCM [N, T * hop] there."""
+        dev, model = self._replicas[replica]
         with torch.no_grad():
-            return _pcm16(self.model.decode(
-                self._latents_to_device(windows),
-                self._sid_rows(len(windows), sid))[0])
+            return _pcm16(model.decode(z, self._sid_rows(len(z), sid,
+                                                         dev))[0])
 
-    def _decode_spec(self, windows: np.ndarray, sid: Optional[int] = None):
-        """z windows [N, T, C] of speaker `sid` -> (spec, phase) on the
-        device, [N, F, s, bins] ([N, F, bins] for the iSTFT head)."""
+    def _decode_spec(self, z: torch.Tensor, sid: Optional[int] = None,
+                     replica: int = 0):
+        """z windows [N, T, C] of speaker `sid`, on the device of mesh
+        position `replica` -> (spec, phase) there, [N, F, s, bins]
+        ([N, F, bins] for the iSTFT head)."""
+        dev, model = self._replicas[replica]
         with torch.no_grad():
-            _, _, spec, phase = self.model.decode(
-                self._latents_to_device(windows),
-                self._sid_rows(len(windows), sid))
+            _, _, spec, phase = model.decode(z, self._sid_rows(len(z), sid,
+                                                               dev))
             return spec, phase
 
     # ------------------------------------------------------------------
@@ -371,7 +417,7 @@ class SynthesisModule:
         for tb, fb in pairs:
             x = self._to_device(np.ones((1, tb), np.int64))
             xl = self._to_device(np.asarray([tb], np.int64))
-            gen, w_eps = self._draws(x, 0)
+            gen, w_eps = self._draws(x.shape, 0)
             self._predict_frames(x, xl, sid, 1.0, 0.8, w_eps)
             _, pcm = self._infer(x, xl, sid, 0.667, 1.0, 0.8, fb, gen, w_eps)
         if pcm is not None:
@@ -445,7 +491,7 @@ class SynthesisModule:
         sid_arr = self._sid_rows(1, sid)
         t0 = time.perf_counter()
         t_frontend = t0 - t_start
-        gen, w_eps = self._draws(x, seed)
+        gen, w_eps = self._draws(x.shape, seed)
 
         if self._ratio_observed:
             est = int(len(ids) * self._frames_per_token * length_scale) + 16
@@ -473,7 +519,7 @@ class SynthesisModule:
                 break
             bucket = self._frame_bucket_capped(int(bucket * 3 / 2))
             if seed is not None:  # the same draws again, at the new bucket
-                gen, w_eps = self._draws(x, seed)
+                gen, w_eps = self._draws(x.shape, seed)
         # EMA toward 1.2x the observed ratio, floored at 1.1x so an
         # underestimate (a second decode) stays rare
         ratio = y_len / max(len(ids) * length_scale, 1)
@@ -584,7 +630,7 @@ class SynthesisModule:
         ids = self.text_to_ids(text, cleaned)
         x, x_lengths = self._pad_ids_cached(ids)
         sid_arr = self._sid_rows(1, sid)
-        gen, w_eps = self._draws(x, seed)
+        gen, w_eps = self._draws(x.shape, seed)
         bucket = self._frames_bucket(x, x_lengths, sid_arr, length_scale,
                                      noise_scale_w, w_eps)
         while True:
@@ -602,7 +648,7 @@ class SynthesisModule:
                 break
             bucket = self._frame_bucket_capped(int(bucket * 3 / 2))
             if seed is not None:
-                gen, w_eps = self._draws(x, seed)
+                gen, w_eps = self._draws(x.shape, seed)
         z = host[0][:y_len]
         if return_durations:
             return z, y_len, sid, host[2][: len(ids)]  # w: [T_x] frames
@@ -743,7 +789,8 @@ class SynthesisModule:
             nxt = plan[i + 1][0] if i + 1 < len(plan) else t_total
             win = (nxt - pos) + 2 * overlap_frames
             window = self._stack_windows(plan[i: i + 1], z, win, 1)
-            return self._fetch([self._decode_pcm(window, sid)[0]])
+            return self._fetch([self._decode_pcm(
+                self._latents_to_device(window), sid)[0]])
 
         def wavs():
             pending = dispatch(0)
@@ -835,8 +882,8 @@ class SynthesisModule:
         max_shift: int = 32,
     ) -> np.ndarray:
         """All chunk windows of one utterance decoded as one batch (padded
-        to a batch bucket), then the same join as `stream_from_latents`
-        with a uniform plan."""
+        to a batch bucket, split over the mesh), then the same join as
+        `stream_from_latents` with a uniform plan."""
         t_total = z.shape[0]
         plan = self._chunk_plan(t_total, chunk_frames, overlap_frames)
         if not plan:
@@ -845,7 +892,9 @@ class SynthesisModule:
         n = len(plan)
         windows = self._stack_windows(plan, z, w, self._batch_bucket(n))
         # the padded rows come back too: one copy, no slicing launch
-        wav = self._fetch([self._decode_pcm(windows, sid)])()[0]
+        wav = np.concatenate(self._fetch([
+            self._decode_pcm(part, sid, i) for i, part in
+            enumerate(self._shard(self._latents_to_device(windows)))])())
         wav = wav.astype(np.float32) / 32767.0
         spf = self.hop_length
         return np.concatenate(list(self._ola_join(
@@ -894,8 +943,8 @@ class SynthesisModule:
         crossfaded as complex spectra, and the head's tail (iSTFT, then
         PQMF or the synthesis conv for the sub-band heads) runs once over
         the joined spectrogram. ``frame_xcorr`` adds a frame-shift search
-        at each join; ``batched`` decodes all chunks as one batch, else
-        chunk by chunk in a one-deep pipeline."""
+        at each join; ``batched`` decodes all chunks as one batch (split
+        over the mesh), else chunk by chunk in a one-deep pipeline."""
         t_total = z.shape[0]
         if t_total == 0:
             return np.zeros((0,), np.float32)
@@ -910,8 +959,11 @@ class SynthesisModule:
             n = len(plan)
             windows = self._stack_windows(plan, z, win_frames,
                                           self._batch_bucket(n))
-            spec_all, phase_all = self._fetch(
-                self._decode_spec(windows, sid))()
+            parts = [self._decode_spec(part, sid, i) for i, part in
+                     enumerate(self._shard(self._latents_to_device(windows)))]
+            host = self._fetch([t for part in parts for t in part])()
+            spec_all = np.concatenate(host[0::2])
+            phase_all = np.concatenate(host[1::2])
 
             def cspecs():
                 for i in range(n):
@@ -920,7 +972,8 @@ class SynthesisModule:
             def dispatch(i: int):
                 window = self._stack_windows(plan[i: i + 1], z,
                                              win_frames, 1)
-                spec, phase = self._decode_spec(window, sid)
+                spec, phase = self._decode_spec(
+                    self._latents_to_device(window), sid)
                 return self._fetch([spec[0], phase[0]])
 
             def cspecs():
@@ -988,7 +1041,8 @@ class SynthesisModule:
         bucket = _next_bucket(z.shape[0], self.FRAME_BUCKETS)
         zp = np.zeros((1, bucket, z.shape[-1]), np.float32)
         zp[0, : z.shape[0]] = z
-        wav = self._fetch([self._decode_pcm(zp, sid)[0]])()[0]
+        wav = self._fetch([self._decode_pcm(self._latents_to_device(zp),
+                                            sid)[0]])()[0]
         wav = wav.astype(np.float32) / 32767.0
         return wav[: z.shape[0] * self.hop_length]
 
@@ -996,9 +1050,14 @@ class SynthesisModule:
     # batched synthesis: many utterances per decode
     # ------------------------------------------------------------------
     def _batch_bucket(self, n: int) -> int:
-        """Batch count -> batch bucket (granule 8 beyond the table: the
-        padded rows are decoded and fetched)."""
-        return _next_bucket(max(n, 1), self.BATCH_BUCKETS, granule=8)
+        """Batch count -> batch bucket, rounded up to a multiple of the
+        mesh's devices (granule 8 beyond the table: the padded rows are
+        decoded and fetched)."""
+        n_dev = len(self._replicas)
+        nb = _next_bucket(max(n, n_dev), self.BATCH_BUCKETS, granule=8)
+        if nb % n_dev:
+            nb += n_dev - nb % n_dev
+        return nb
 
     def synthesize_batch(
         self,
@@ -1012,7 +1071,8 @@ class SynthesisModule:
         out_sample_rate: Optional[int] = None,
     ) -> Tuple[List[np.ndarray], Dict[str, float]]:
         """Synthesize a list of utterances as one batch, padded to (batch,
-        text, frame) buckets, row i as speaker `sids[i]` (`None`: 0).
+        text, frame) buckets and split over the mesh, row i as speaker
+        `sids[i]` (`None`: 0).
         Returns per-utterance trimmed audio and aggregate timings.
         `out_sample_rate` resamples on the device (`resample_poly_torch`,
         up or down); timings count audio seconds at the output rate."""
@@ -1029,25 +1089,42 @@ class SynthesisModule:
         for i, ids in enumerate(ids_list):
             x[i, : len(ids)] = ids
             x_lengths[i] = len(ids)
-        x, x_lengths = self._to_device(x), self._to_device(x_lengths)
         sid_arr = None
         if self.cfg.n_speakers > 0:
-            rows = np.zeros((nb,), np.int64)
+            sid_arr = np.zeros((nb,), np.int64)
             for i, s in enumerate((sids or [])[:n]):
-                rows[i] = 0 if s is None else int(s)
-            sid_arr = self._to_device(rows)
-        gen, w_eps = self._draws(x, seed)
-        frames = self._predict_frames(x, x_lengths, sid_arr, length_scale,
-                                      noise_scale_w, w_eps)
+                sid_arr[i] = 0 if s is None else int(s)
+        # the batch's draws on the first device, split by row below
+        gen, w_eps = self._draws((nb, t_x), seed)
+        parts = self._shard({
+            "x": self._to_device(x), "x_lengths": self._to_device(x_lengths),
+            "sid": None if sid_arr is None else self._to_device(sid_arr),
+            "w_eps": w_eps})
+        frames = [self._predict_frames(p["x"], p["x_lengths"], p["sid"],
+                                       length_scale, noise_scale_w,
+                                       p["w_eps"], model)
+                  for p, (_, model) in zip(parts, self._replicas)]
         # capped like the single-request path: one out-of-distribution
         # row must not size the whole batch's decode without bound
-        bucket = self._frame_bucket_capped(int(frames.max()))
+        bucket = self._frame_bucket_capped(
+            max(int(f.max()) for f in frames))
         out_sr = (None if out_sample_rate in (None, self.sampling_rate)
                   else int(out_sample_rate))
-        out, pcm16 = self._infer(x, x_lengths, sid_arr, noise_scale,
-                                 length_scale, noise_scale_w, bucket, gen,
-                                 w_eps, out_sr)
-        pcm_host, y_lens = self._fetch([pcm16, out.y_lengths])()
+        # the prior's noise after w_eps, as `Synthesizer.infer` draws it
+        eps = self._shard(torch.randn(
+            (nb, self.cfg.inter_channels, bucket), generator=gen,
+            dtype=self.compute_dtype, device=self.device).transpose(1, 2))
+        fetch = []
+        for p, e, (_, model) in zip(parts, eps, self._replicas):
+            # every device's work is queued before the first copy back
+            out, pcm16 = self._infer(p["x"], p["x_lengths"], p["sid"],
+                                     noise_scale, length_scale,
+                                     noise_scale_w, bucket, gen, p["w_eps"],
+                                     out_sr, eps=e, model=model)
+            fetch += [pcm16, out.y_lengths]
+        host = self._fetch(fetch)()
+        pcm_host = np.concatenate(host[0::2])
+        y_lens = np.concatenate(host[1::2])
         wavs = pcm_host.astype(np.float32) / 32767.0
         sr_out = out_sr or self.sampling_rate
         if out_sr is None:

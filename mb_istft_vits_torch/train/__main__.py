@@ -7,6 +7,15 @@ with its argument names and meanings).
         [--device-resident] [--boundaries F0,F1,..] [--debug-nans]
         [--device cuda|cpu] [--seed S]
 
+    torchrun --nproc_per_node N -m mb_istft_vits_torch.train -c ... -m ...
+
+On N cards (torchrun, one process per card, the reference's NCCL DDP):
+rank r trains on rank r's share of every global batch of N x batch_size
+rows, on card LOCAL_RANK, and the step's losses and gradients are the
+global batch's. Rank 0 alone logs, evaluates and writes checkpoints; a
+SIGTERM to any rank stops all of them at one step, with a pair. With
+--device cpu the ranks run on the CPU over gloo.
+
 Everything goes to logs/NAME/: train.log (one line of metrics every
 `log_interval` steps, to stdout too), the config and git commit, and
 every `eval_interval` steps an evaluation (copy-synthesis MCD / LSD / F0

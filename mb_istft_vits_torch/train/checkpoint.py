@@ -32,16 +32,28 @@ def _path(model_dir: str, prefix: str, step: int) -> str:
 
 def save(model_dir: str, state: TrainState) -> None:
     """Write G_{step}.pth and D_{step}.pth (D first, so a G file means
-    the pair is complete; each through a temporary name)."""
-    os.makedirs(model_dir, exist_ok=True)
+    the pair is complete; each through a temporary name). The plain
+    modules' state dicts: a data-parallel run's rank 0 calls this, and the
+    names carry no DDP prefix. A state sharded by FSDP2
+    (`parallel.tp`) is gathered whole, a collective every rank enters;
+    rank 0 writes it."""
     # the lr of the last step taken
     lr = make_lr_schedule(state.cfg.train)(
         max(state.step - 1 - state.lr_offset, 0))
     for prefix, net, optim in (("D", state.net_d, state.optim_d),
                                ("G", state.net_g, state.optim_g)):
+        if state.tp_mesh is None:
+            model, optim_sd = net.state_dict(), optim.state_dict()
+        else:
+            from mb_istft_vits_torch.parallel.tp import full_state_dicts
+
+            model, optim_sd = full_state_dicts(net, optim)
+            if torch.distributed.get_rank() != 0:
+                continue
+        os.makedirs(model_dir, exist_ok=True)
         path = _path(model_dir, prefix, state.step)
-        torch.save({"model": net.state_dict(), "iteration": state.step,
-                    "optimizer": optim.state_dict(), "learning_rate": lr},
+        torch.save({"model": model, "iteration": state.step,
+                    "optimizer": optim_sd, "learning_rate": lr},
                    path + ".tmp")
         os.replace(path + ".tmp", path)
 

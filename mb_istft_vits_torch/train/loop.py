@@ -10,6 +10,15 @@ validation set loads. Its scalars always go to the log and decide the
 best-by-eval pair; summaries, plots and audio go to TensorBoard only when
 `tensorboardX` can be imported. (The JAX trainer evaluates only with a
 writer, so without tensorboardX its best-by-eval record never moves.)
+
+Data parallel (under torchrun, one process per card; JAX `train.py`'s
+multi-host run): rank r takes rank r of the rank-strided batcher, so the
+global batch is world x batch_size rows and `steps_per_epoch` counts one
+rank's batches. Every rank steps to the same boundaries; rank 0 alone
+logs (the metrics are the global batch's), evaluates, saves the pairs,
+keeps best.json, prunes and writes config.json and githash. A SIGTERM to
+any rank is agreed by an all-reduce at each step boundary, so every rank
+stops at the same step, rank 0 writes the pair and all exit 0.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mb_istft_vits_torch.config import Config
 from mb_istft_vits_torch.data import (
@@ -37,7 +47,8 @@ from mb_istft_vits_torch.data import (
     device_prefetch,
     prefetch_epoch,
 )
-from mb_istft_vits_torch.device import disable_tf32, resolve_device
+from mb_istft_vits_torch.device import disable_tf32
+from mb_istft_vits_torch.parallel import init_distributed, shard_train_state_dp
 from mb_istft_vits_torch.train import checkpoint
 from mb_istft_vits_torch.train.step import create_train_state, train_step
 
@@ -45,16 +56,19 @@ BEST_METRIC = "eval/mcd_copy_synthesis"
 LOADER_THREADS = 8  # the reference's DataLoader(num_workers=8)
 
 
-def _logger(model_dir: str) -> logging.Logger:
+def _logger(model_dir: str, rank: int = 0) -> logging.Logger:
     """Logger of this run: to stdout and model_dir/train.log (reference
-    utils.py:228-240); handlers of an earlier run in the process go."""
+    utils.py:228-240); handlers of an earlier run in the process go. A
+    rank other than 0 logs only warnings, to stderr."""
     logger = logging.getLogger(f"mb_istft_vits_torch.train:{model_dir}")
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if rank == 0 else logging.WARNING)
     logger.propagate = False
     _close(logger)
     fmt = logging.Formatter("%(asctime)s\t%(levelname)s\t%(message)s")
-    for h in (logging.FileHandler(os.path.join(model_dir, "train.log")),
-              logging.StreamHandler(sys.stdout)):
+    handlers = ((logging.FileHandler(os.path.join(model_dir, "train.log")),
+                 logging.StreamHandler(sys.stdout)) if rank == 0
+                else (logging.StreamHandler(sys.stderr),))
+    for h in handlers:
         h.setFormatter(fmt)
         logger.addHandler(h)
     return logger
@@ -271,14 +285,25 @@ def _evaluate_and_save(cfg, state, model_dir, logger, eval_ds, writer,
 class _Sigterm:
     """Records a SIGTERM for the loop to act on at the next step boundary;
     the previous handler comes back on exit. Outside the main thread
-    (where handlers cannot be set) it records nothing."""
+    (where handlers cannot be set) it records nothing. In a process group,
+    `agreed` is true once any rank has received one (JAX
+    `preempt_agreed`): a rank that stopped alone would leave the others
+    waiting in the next all-reduce."""
 
-    def __init__(self):
+    def __init__(self, device: torch.device):
         self.received = False
         self._previous = None
+        self._device = device
 
     def _on_signal(self, signum, frame):
         self.received = True
+
+    def agreed(self) -> bool:
+        if not dist.is_initialized():
+            return self.received
+        flag = torch.tensor([int(self.received)], device=self._device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     def __enter__(self):
         try:
@@ -293,10 +318,21 @@ class _Sigterm:
 
 
 def run(args: argparse.Namespace) -> int:
-    """The CLI's run; `args` as `train.__main__` parses them."""
+    """The CLI's run; `args` as `train.__main__` parses them. Under
+    torchrun it starts the process group (NCCL on CUDA, gloo on the CPU)
+    and runs this rank's share; it ends the group on the way out."""
+    info = init_distributed(device=args.device)
+    try:
+        return _run(args, info)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args: argparse.Namespace, info) -> int:
     from mb_istft_vits_torch.utils.observability import enable_nan_debugging
 
-    device = resolve_device(args.device)
+    device, rank0 = info.device, info.rank == 0
     if device.type == "cuda":
         disable_tf32()
     cfg = Config.from_json(args.config)
@@ -304,15 +340,16 @@ def run(args: argparse.Namespace) -> int:
     torch.manual_seed(seed)  # dropout
     model_dir = os.path.join("logs", args.model)
     os.makedirs(model_dir, exist_ok=True)
-    logger = _logger(model_dir)
+    logger = _logger(model_dir, info.rank)
     anomaly = torch.is_anomaly_enabled()
     writer = None
     try:
-        check_git_hash(model_dir, logger)
-        with open(args.config) as f:  # the config snapshot (utils.py:172)
-            cfg_text = f.read()
-        with open(os.path.join(model_dir, "config.json"), "w") as f:
-            f.write(cfg_text)
+        if rank0:
+            check_git_hash(model_dir, logger)
+            with open(args.config) as f:  # the config snapshot (utils.py:172)
+                cfg_text = f.read()
+            with open(os.path.join(model_dir, "config.json"), "w") as f:
+                f.write(cfg_text)
         dataset = TextAudioDataset(cfg.data.training_files, cfg.data,
                                    seed=cfg.train.seed,
                                    device_spec=not args.host_spec)
@@ -320,17 +357,24 @@ def run(args: argparse.Namespace) -> int:
         if args.boundaries:
             bucket_kw["boundaries"] = [int(v) for v in
                                        args.boundaries.split(",")]
-        batcher = BucketedBatcher(dataset, cfg.train.batch_size, **bucket_kw)
+        batcher = BucketedBatcher(dataset, cfg.train.batch_size,
+                                  num_replicas=info.world, rank=info.rank,
+                                  **bucket_kw)
         spe = len(batcher)
         if spe == 0:
             raise ValueError(
                 f"{cfg.data.training_files}: no batch ({len(dataset)} usable "
-                f"rows, batch size {cfg.train.batch_size})")
+                f"rows, batch size {cfg.train.batch_size} x {info.world} "
+                f"ranks)")
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, steps_per_epoch=spe))
         logger.info("dataset: %d utts, %d steps/epoch, buckets %s, "
                     "device %s", len(dataset), spe, batcher.boundaries,
                     device)
+        if dist.is_initialized():
+            logger.info("process group: %d rank(s) over %s, a global batch "
+                        "of %d", info.world, dist.get_backend(),
+                        info.world * cfg.train.batch_size)
         feeder = None
         if args.device_resident:
             if args.host_spec:
@@ -354,20 +398,24 @@ def run(args: argparse.Namespace) -> int:
                         f" (snapped to epoch boundary {snapped})"
                         if snapped != start else "",
                         " (optimizer reset)" if args.reset_optimizer else "")
-        writer = _tensorboard(model_dir)
-        eval_ds = make_eval_dataset(cfg, logger)
-        best = checkpoint.best_step(model_dir) or {}
-        best_eval = {"step": best.get("step"), "value": best.get("value")}
+        shard_train_state_dp(state)
+        eval_ds, best_eval = None, {"step": None, "value": None}
+        if rank0:
+            writer = _tensorboard(model_dir)
+            eval_ds = make_eval_dataset(cfg, logger)
+            best = checkpoint.best_step(model_dir) or {}
+            best_eval = {"step": best.get("step"), "value": best.get("value")}
         last = args.max_steps or cfg.train.epochs * spe
         t = cfg.train
         t_last = time.perf_counter()
         first_epoch = state.step // spe if state.step < last else t.epochs
         batches = _batches(batcher, first_epoch, t.epochs, device, feeder)
-        with _Sigterm() as sigterm, contextlib.closing(batches):
+        with _Sigterm(device) as sigterm, contextlib.closing(batches):
             for batch in batches:
                 metrics = train_step(state, batch)
                 step = state.step
-                if step % t.log_interval == 0:
+                stop = sigterm.agreed()
+                if rank0 and step % t.log_interval == 0:
                     m = {k: float(v) for k, v in metrics.items()}
                     now = time.perf_counter()
                     m["steps_per_sec"] = t.log_interval / (now - t_last)
@@ -376,17 +424,19 @@ def run(args: argparse.Namespace) -> int:
                     if writer is not None:
                         for k, v in m.items():
                             writer.add_scalar(k, v, step)
-                if step % t.eval_interval == 0:
+                if rank0 and step % t.eval_interval == 0:
                     _evaluate_and_save(cfg, state, model_dir, logger,
                                        eval_ds, writer, best_eval)
-                elif sigterm.received or step >= last:
+                elif rank0 and (stop or step >= last):
                     checkpoint.save(model_dir, state)
                     logger.info("saved checkpoint at %d", step)
-                if sigterm.received:
+                if stop:
                     logger.info("SIGTERM: checkpointed at step %d, exiting",
                                 step)
-                if sigterm.received or step >= last:
+                if stop or step >= last:
                     break
+        if dist.is_initialized():
+            dist.barrier()  # rank 0's last pair is on disk
     finally:
         torch.autograd.set_detect_anomaly(anomaly)
         if writer is not None:

@@ -219,9 +219,12 @@ def test_mesh_of_one_device_is_a_no_op_and_a_larger_one_raises(modules):
         assert sm.mesh is None
         np.testing.assert_array_equal(sm.synthesize(TEXTS[1], **QUIET)[0],
                                       want)
-    with pytest.raises(NotImplementedError, match="9.3"):
-        port.SynthesisModule(path, pth, None, 0, torch.float32,
-                             ["cpu", "cpu"], device="cpu")
+    # a larger mesh serves now (the serving mesh): a request is the
+    # single-device module's; it no longer raises
+    sm = port.SynthesisModule(path, pth, None, 0, torch.float32,
+                              ["cpu", "cpu"], device="cpu")
+    assert len(sm.mesh) == 2
+    np.testing.assert_array_equal(sm.synthesize(TEXTS[1], **QUIET)[0], want)
 
 
 def test_aot_cache_dir_is_accepted(modules, tmp_path):

@@ -273,7 +273,9 @@ def test_resident_feeder_refuses_host_spec_and_a_larger_mesh(corpus):
         DeviceResidentFeeder(host_spec, device="cpu")
     pcm = BucketedBatcher(TextAudioDataset(lists["single"], DataConfig(),
                                            device_spec=True), BATCH)
-    with pytest.raises(NotImplementedError, match="9.3"):
+    # one process feeds its own card: a mesh is one device per rank, and
+    # this batcher has one rank
+    with pytest.raises(ValueError, match="each rank"):
         DeviceResidentFeeder(pcm, ["cpu", "cpu"], device="cpu")
     DeviceResidentFeeder(pcm, [torch.device("cpu")], device="cpu")
 

@@ -30,7 +30,11 @@ def _env():
     return env
 
 
-def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+@pytest.fixture(scope="module")
+def imported():
+    """Every port module, chip_smoke.py and the test ranks' worker imported
+    in a fresh process (without torchrun's environment): the modules, any
+    JAX module loaded, and whether a process group was started."""
     code = r"""
 import importlib, importlib.util, pkgutil, sys, json
 import mb_istft_vits_torch
@@ -38,17 +42,27 @@ names = [m.name for m in pkgutil.walk_packages(
     mb_istft_vits_torch.__path__, "mb_istft_vits_torch.")]
 for name in names:
     importlib.import_module(name)
-spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for path in ("chip_smoke.py", "tests/torch_port_dist_worker.py"):
+    spec = importlib.util.spec_from_file_location("m", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax")
              or m.startswith("mb_istft_vits_tpu"))
-print(json.dumps({"modules": names, "bad": bad}))
+import torch.distributed as dist
+print(json.dumps({"modules": names, "bad": bad,
+                  "process_group": dist.is_initialized()}))
 """
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+    env = {k: v for k, v in _env().items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package(imported):
+    out = imported
     assert out["bad"] == []
     assert "mb_istft_vits_torch.models.synthesizer" in out["modules"]
     for name in ("synthesize", "synthesize_z", "batch_synthesize",
@@ -58,8 +72,14 @@ print(json.dumps({"modules": names, "bad": bad}))
                  "utils.observability", "data.prefetch", "train.loop",
                  "train.checkpoint", "data.resident", "data.native_audio",
                  "utils.native_build", "utils.corpus", "eval_metrics",
-                 "eval_checkpoint", "eval_vc", "preprocess", "make_corpus"):
+                 "eval_checkpoint", "eval_vc", "preprocess", "make_corpus",
+                 "parallel", "parallel.mesh", "parallel.tp",
+                 "parallel.dryrun"):
         assert f"mb_istft_vits_torch.{name}" in out["modules"]
+
+
+def test_importing_the_port_starts_no_process_group(imported):
+    assert imported["process_group"] is False
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
