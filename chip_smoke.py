@@ -92,6 +92,18 @@ Phases, one JSON line each:
            > 0.98 with the whole decode); the micro-batcher with 8
            concurrent callers (rows bit-equal to synthesize_batch); the
            streaming engine for one utterance, twice
+  export   the exported serving artifact (infer/export.py) of the flagship:
+           two (text, frame) pairs traced on the card, loaded with
+           load_serving; 4 filelist texts bit-equal to the live module at
+           their seeds and frame buckets, seeded repeats bit-equal,
+           unseeded requests different, frames past every bucket
+           refused; a pair traced on the CPU and served on cuda:0 (within
+           one int16 step of the card-traced one); a bf16 pair against the
+           live bf16 module (its distance reported); a 12-speaker pair,
+           speakers 0 and 5, bit-equal to its live module; export and load
+           seconds, the bytes of params.pt and each .pt2 (each under a
+           tenth of the weights), the median RTF of 12 requests and the
+           launches a request, live against artifact
   serve_ms the 12-speaker model of train_ms: warmup(), 4 UUDB rows as
            requests of speakers 0 and 11 (different PCM), one profiled, a
            seeded repeat at one bucket (bit-equal); synthesize_batch of 16
@@ -2583,6 +2595,199 @@ def phase_serve_mesh():
         raise AssertionError(f"serve_mesh checks failed: {failed}")
 
 
+EXPORT_TEXTS = 4  # texts held bit for bit to the live module
+EXPORT_RTF_REQUESTS = 12  # requests timed in each of live and artifact
+
+
+def _text_bucket(sm, text):
+    from mb_istft_vits_torch.infer.synthesis import _next_bucket
+
+    return _next_bucket(len(sm.text_to_ids(text)), sm.TEXT_BUCKETS)
+
+
+def _bucket_texts(sm, n):
+    """{text bucket: its first n filelist texts} of the two text buckets
+    most of the first 200 lines fall in."""
+    by_tb = {}
+    for text in _texts(200):
+        by_tb.setdefault(_text_bucket(sm, text), []).append(text)
+    tbs = sorted(by_tb, key=lambda b: (-len(by_tb[b]), b))[:2]
+    return {tb: by_tb[tb][:n] for tb in sorted(tbs)}
+
+
+def _probe_bucket(sm, text, sid=None):
+    """The frame bucket the live module's duration probe gives `text`."""
+    x, xl = sm._pad_ids(sm.text_to_ids(text))
+    gen, w_eps = sm._draws(x.shape, 0)
+    return sm._frames_bucket(x, xl, sm._sid_rows(1, sid), 1.0, 0.8, w_eps)
+
+
+def _live_at(sm, art, text, *args, **kw):
+    """The live module's request at the frame buckets the artifact holds
+    for the text's bucket, the bucket from the probe."""
+    old = sm.FRAME_BUCKETS
+    sm.FRAME_BUCKETS = tuple(art._buckets_for(len(art.text_to_ids(text)))[1])
+    _fresh_bucket_state(sm)
+    try:
+        return sm.synthesize(text, *args, **kw)
+    finally:
+        sm.FRAME_BUCKETS = old
+
+
+def _exported(sm, root, name, pairs):
+    """export_serving of `pairs` into root/name, then load_serving onto
+    cuda:0: (artifact, export s, load s, file bytes)."""
+    from mb_istft_vits_torch.infer.export import export_serving, load_serving
+
+    out = os.path.join(root, name)
+    t0 = time.perf_counter()
+    export_serving(sm, out, pairs)
+    t1 = time.perf_counter()
+    art = load_serving(out, device="cuda:0")
+    t2 = time.perf_counter()
+    sizes = {f: os.path.getsize(os.path.join(out, f))
+             for f in sorted(os.listdir(out))}
+    programs = sum(f.endswith(".pt2") for f in sizes)
+    return art, {"pairs": [list(p) for p in pairs], "programs": programs,
+                 "export_s": t1 - t0, "export_s_per_program":
+                 (t1 - t0) / programs, "load_s": t2 - t1, "bytes": sizes}
+
+
+def phase_export(smi):
+    """The exported serving artifact (infer/export.py) of the flagship at
+    full width, f32, seeded random weights. Two (text, frame) pairs traced
+    on the card, of the two text buckets most filelist lines fall in (each
+    with the largest frame bucket the live probe gives its texts), loaded
+    with load_serving: EXPORT_TEXTS filelist texts, half of each text
+    bucket, at seeds 0.. bit-equal to the live
+    module's synthesize at the same seed and frame bucket, a seeded
+    repeat bit-equal, two unseeded requests different, frames past every
+    bucket refused; one pair traced with the module on the CPU and served
+    on cuda:0 (within one int16 step of the card-traced artifact); one
+    pair of the bf16 module against the live bf16 module; one pair of the
+    12-speaker model with speakers 0 and 5 against its live module.
+    Reports export and load seconds, the bytes of params.pt and of each
+    .pt2, the median RTF of EXPORT_RTF_REQUESTS requests in the live
+    module and in the artifact, and cudaLaunchKernel calls a request in
+    each."""
+    import numpy as np
+    import torch
+
+    from mb_istft_vits_torch.infer.synthesis import SynthesisModule
+
+    checks, diff = {}, {}
+
+    def check(name, ok):
+        checks[name] = checks.get(name, True) and bool(ok)
+
+    def err(a, b):
+        return float(np.abs(a - b).max()) if a.shape == b.shape else None
+
+    live = SynthesisModule(CONFIG, seed=0, device="cuda")
+    by_tb = _bucket_texts(live, EXPORT_RTF_REQUESTS // 2)
+    pairs = [(tb, max(_probe_bucket(live, t) for t in ts))
+             for tb, ts in by_tb.items()]
+    texts = [t for row in zip(*by_tb.values()) for t in row]  # tb by tb
+    tb = pairs[0][0]  # the CPU-traced and the bf16 pairs' text bucket
+    files = {}
+    with tempfile.TemporaryDirectory() as root:
+        art, files["cuda"] = _exported(live, root, "cuda", pairs)
+        for i, text in enumerate(texts[:EXPORT_TEXTS]):
+            want, tw = _live_at(live, art, text, seed=i)
+            got, tg = art.synthesize(text, seed=i)
+            check("f32_bit_equal_to_live", np.array_equal(got, want)
+                  and tg["frame_bucket"] == tw["frame_bucket"])
+            diff.setdefault("f32_vs_live", []).append(err(got, want))
+            again, _ = art.synthesize(text, seed=i)
+            check("seeded_repeat_bit_equal", np.array_equal(again, got))
+        r1, _ = art.synthesize(texts[0])
+        r2, _ = art.synthesize(texts[0])
+        check("unseeded_requests_differ",
+              r1.shape != r2.shape or not np.array_equal(r1, r2))
+        try:
+            art.synthesize(texts[0], seed=0, length_scale=50.0)
+            check("overflow_refused", False)
+        except ValueError:
+            check("overflow_refused", True)
+
+        # traced on the CPU, served on the card
+        cpu_live = SynthesisModule(CONFIG, seed=0, device="cpu")
+        moved, files["cpu_traced"] = _exported(cpu_live, root, "cpu",
+                                               pairs[:1])
+        del cpu_live
+        diff["cpu_traced_vs_card_traced"] = []
+        for i, text in enumerate(texts):
+            if _text_bucket(live, text) == tb:
+                diff["cpu_traced_vs_card_traced"].append(err(
+                    moved.synthesize(text, seed=i)[0],
+                    art.synthesize(text, seed=i)[0]))
+        check("cpu_traced_within_one_int16_step",
+              diff["cpu_traced_vs_card_traced"] and all(
+                  e is not None and e <= 1.0 / 32767 + 1e-9
+                  for e in diff["cpu_traced_vs_card_traced"]))
+
+        # the median RTF and launches a request, live against artifact
+        # (every shape has run above)
+        rtf = {"live": [], "artifact": []}
+        for i, text in enumerate(texts):
+            rtf["live"].append(_live_at(live, art, text, seed=i)[1]["rtf"])
+            rtf["artifact"].append(art.synthesize(text, seed=i)[1]["rtf"])
+        profiles = {
+            "live": profile_call(lambda: _live_at(live, art, texts[0],
+                                                  seed=0)),
+            "artifact": profile_call(lambda: art.synthesize(texts[0],
+                                                            seed=0))}
+        del art, moved, live
+        torch.cuda.empty_cache()
+
+        # bf16: the live bf16 module's own frame bucket
+        bf = SynthesisModule(CONFIG, None, None, 0, torch.bfloat16,
+                             device="cuda")
+        bf_pair = (tb, max(_probe_bucket(bf, t) for t in by_tb[tb]))
+        art, files["bf16"] = _exported(bf, root, "bf16", [bf_pair])
+        for i, text in enumerate(by_tb[tb][:EXPORT_TEXTS]):
+            want, tw = _live_at(bf, art, text, seed=i)
+            got, tg = art.synthesize(text, seed=i)
+            diff.setdefault("bf16_vs_live", []).append(err(got, want))
+            check("bf16_same_bucket", tg["frame_bucket"] == tw["frame_bucket"])
+        del art, bf
+        torch.cuda.empty_cache()
+
+        # the 12-speaker model, speakers 0 and 5
+        ms = SynthesisModule(MS_CONFIG, seed=0, device="cuda")
+        _, ms_text = ms_rows()[0]
+        ms_pair = (_text_bucket(ms, ms_text),
+                   max(_probe_bucket(ms, ms_text, sid) for sid in (0, 5)))
+        art, files["multi_speaker"] = _exported(ms, root, "ms", [ms_pair])
+        outs = []
+        for sid in (0, 5):
+            want, tw = _live_at(ms, art, ms_text, sid, seed=3)
+            got, tg = art.synthesize(ms_text, sid, seed=3)
+            check("multi_speaker_bit_equal_to_live",
+                  np.array_equal(got, want)
+                  and tg["frame_bucket"] == tw["frame_bucket"])
+            diff.setdefault("multi_speaker_vs_live", []).append(
+                err(got, want))
+            outs.append(got)
+        check("speakers_differ", outs[0].shape != outs[1].shape
+              or not np.array_equal(*outs))
+        del art, ms
+        torch.cuda.empty_cache()
+    params_bytes = files["cuda"]["bytes"]["params.pt"]
+    check("programs_well_under_the_weights", all(
+        n < params_bytes / 10 for f, n in files["cuda"]["bytes"].items()
+        if f.endswith(".pt2")))
+    emit("export", config=os.path.relpath(CONFIG, REPO), nvidia_smi=smi,
+         weights="random (seed 0)", pairs=pairs,
+         texts=EXPORT_TEXTS, files=files, max_abs_err=diff,
+         bf16_bit_equal=all(e == 0.0 for e in diff["bf16_vs_live"]),
+         median_rtf={k: statistics.median(v) for k, v in rtf.items()},
+         rtf=rtf, profile_request=profiles, checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"export checks failed: {failed}")
+
+
 def main() -> int:
     smi = run_phase(phase_device)
     sys.path.insert(0, REPO)
@@ -2618,6 +2823,7 @@ def main() -> int:
         # last: the serving modules pin cuDNN's deterministic algorithms
         # for the rest of the process
         run_phase(phase_serve)
+        run_phase(phase_export, smi)
         run_phase(phase_serve_ms)
         run_phase(phase_serve_istft)
         run_phase(phase_serve_sdp, root)

@@ -65,14 +65,19 @@ def _basis(sampling_rate: int, n_fft: int, n_mels: int, fmin: float,
         sampling_rate, n_fft, n_mels, fmin, fmax))).to(device)
 
 
+def spectral_normalize(x: torch.Tensor, clip_val: float = 1e-5
+                       ) -> torch.Tensor:
+    """Log dynamic-range compression (reference `mel_processing.py:19-39`)."""
+    return torch.log(torch.clamp(x, min=clip_val))
+
+
 def spec_to_mel(spec: torch.Tensor, n_fft: int, num_mels: int,
                 sampling_rate: int, fmin: float, fmax: Optional[float]
                 ) -> torch.Tensor:
     """Linear spectrogram [B, n_bins, F] -> log-mel [B, n_mels, F]
     (reference `mel_processing.py:73-82`)."""
     basis = _basis(sampling_rate, n_fft, num_mels, fmin, fmax, spec.device)
-    return torch.log(torch.clamp(torch.matmul(basis.to(spec.dtype), spec),
-                                 min=1e-5))
+    return spectral_normalize(torch.matmul(basis.to(spec.dtype), spec))
 
 
 def mel_spectrogram(y: torch.Tensor, n_fft: int, num_mels: int,

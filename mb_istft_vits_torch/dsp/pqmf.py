@@ -7,6 +7,10 @@ reference's own pipeline: analysis is the 63-tap cosine-modulated
 analysis filters as one conv1d, then every `subbands`-th sample;
 synthesis zero-stuffs x subbands with gain `subbands`, then runs the
 synthesis filters as one conv1d.
+
+`PQMFBank` is the JAX package's name for the same filterbank; besides the
+band-major `analysis_bm` / `synthesis_bm` that the decoder and the
+sub-band loss use, it has JAX's channels-last `analysis` / `synthesis`.
 """
 
 from __future__ import annotations
@@ -85,3 +89,16 @@ class PQMF(nn.Module):
         half = self.taps // 2
         return F.conv1d(F.pad(up, (half, half)),
                         self.synthesis_filter.to(x.dtype))
+
+    def analysis(self, x: torch.Tensor) -> torch.Tensor:
+        """Channels-last: waveform [B, T, 1] -> sub-bands
+        [B, ceil(T/S), S] (JAX `PQMFBank.analysis`)."""
+        return self.analysis_bm(x.transpose(1, 2)).transpose(1, 2)
+
+    def synthesis(self, x: torch.Tensor) -> torch.Tensor:
+        """Channels-last: sub-bands [B, T/S, S] -> waveform [B, T, 1]
+        (JAX `PQMFBank.synthesis`)."""
+        return self.synthesis_bm(x.transpose(1, 2)).transpose(1, 2)
+
+
+PQMFBank = PQMF

@@ -10,6 +10,9 @@
     not by reflection.
   - `istft`: the decoder heads' inverse (`TorchSTFT.inverse`, reference
     `stft.py:197-202`) with center=True.
+  - `hann_window` and `TorchSTFT`, the JAX package's stand-in for the
+    reference's `TorchSTFT` (`transform` -> magnitude and phase,
+    `inverse` -> [B, 1, T]).
 
 torch.istft divides by the window's overlap-add envelope and raises where
 the envelope vanishes inside the kept span; the JAX package divides by 1
@@ -20,18 +23,26 @@ span, so the two agree.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+def hann_window(win_length: int,
+                device: Optional[torch.device] = None) -> torch.Tensor:
+    """Periodic Hann window [win_length] in float32, as
+    scipy.signal.get_window('hann', n, fftbins=True) at reference
+    `stft.py:187`."""
+    return torch.hann_window(win_length, periodic=True, dtype=torch.float32,
+                             device=device)
 
 
 def padded_window(win_length: int, n_fft: int,
                   device: torch.device) -> torch.Tensor:
     """Periodic Hann window of win_length, zero-padded at the centre of
     n_fft (JAX `_padded_window`; what torch.stft does to a short window)."""
-    win = torch.hann_window(win_length, periodic=True, dtype=torch.float32,
-                            device=device)
+    win = hann_window(win_length, device)
     left = (n_fft - win_length) // 2
     return F.pad(win, (left, n_fft - win_length - left))
 
@@ -81,3 +92,26 @@ def istft(magnitude: torch.Tensor, phase: torch.Tensor, n_fft: int,
                       window=padded_window(win_length, n_fft, spec.device),
                       center=center)
     return wav.to(magnitude.dtype)
+
+
+class TorchSTFT:
+    """The reference's `TorchSTFT` (`stft.py:181-207`) as the JAX package
+    has it: `transform(y [B, T])` -> (magnitude, phase), each
+    [B, n_bins, F]; `inverse(magnitude, phase)` -> [B, 1, T]."""
+
+    def __init__(self, filter_length: int = 800, hop_length: int = 200,
+                 win_length: int = 800):
+        self.filter_length = filter_length
+        self.hop_length = hop_length
+        self.win_length = win_length
+
+    def transform(self, y: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        real, imag = stft(y, self.filter_length, self.hop_length,
+                          self.win_length, center=True)
+        return torch.sqrt(real * real + imag * imag), torch.atan2(imag, real)
+
+    def inverse(self, magnitude: torch.Tensor, phase: torch.Tensor
+                ) -> torch.Tensor:
+        return istft(magnitude, phase, self.filter_length, self.hop_length,
+                     self.win_length, center=True)[:, None, :]

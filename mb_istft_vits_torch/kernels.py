@@ -3,8 +3,9 @@
 `csrc/*.cu` is compiled with nvcc for Hopper (`sm_90a`) into a shared
 library with a plain C interface, loaded with ctypes. The build happens at
 first use, into `_build/` beside this file (git-ignored), under a name that
-carries a hash of the source and flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is.
+carries a hash of the source, the flags and the compiler's own version
+text (`nvcc --version`), so an edited source or another toolkit builds
+anew and an unchanged one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -38,9 +39,17 @@ def find_nvcc() -> str:
         "from mb_istft_vits_torch/csrc with nvcc for sm_90a")
 
 
+@functools.lru_cache(maxsize=None)
+def nvcc_version() -> str:
+    """`nvcc --version` of the compiler `build` runs; raises without one."""
+    return subprocess.run([find_nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def library_path() -> str:
     with open(SOURCE, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
+                              + nvcc_version().encode())
     return os.path.join(BUILD_DIR, f"libmas-{digest.hexdigest()[:12]}.so")
 
 

@@ -12,6 +12,7 @@ whole library and the last rename wins.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import subprocess
@@ -21,11 +22,20 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
 GXX_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC")
 
 
+@functools.lru_cache(maxsize=None)
+def gxx_version() -> str:
+    """`g++ --version`; raises OSError without a g++."""
+    return subprocess.run(["g++", "--version"], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def library_path(src: str, name: str) -> str:
-    """`_build/lib{name}-{hash}.so`: the hash covers the source and the
-    flags, so an edited source is built anew."""
+    """`_build/lib{name}-{hash}.so`: the hash covers the source, the flags
+    and the compiler's version text, so an edited source or another g++
+    builds anew."""
     with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(GXX_FLAGS).encode())
+        digest = hashlib.sha1(f.read() + " ".join(GXX_FLAGS).encode()
+                              + gxx_version().encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -74,7 +74,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(imported):
                  "utils.native_build", "utils.corpus", "eval_metrics",
                  "eval_checkpoint", "eval_vc", "preprocess", "make_corpus",
                  "parallel", "parallel.mesh", "parallel.tp",
-                 "parallel.dryrun"):
+                 "parallel.dryrun", "infer.export", "export_serving",
+                 "dsp", "dsp.pqmf", "dsp.stft", "dsp.mel"):
         assert f"mb_istft_vits_torch.{name}" in out["modules"]
 
 
