@@ -81,6 +81,18 @@ Phases, one JSON line each:
            cuda:0 over gloo as a (1 x 2) data x model mesh, FSDP2, the
            dryrun's tiny model, held to the single-process step; the
            sharded weights and moments counted as in the CPU tests
+  overfit  the JAX package's overfit gate (scripts/overfit_check.py) through
+           the port's overfit_check.run in this process: the tiny
+           multi-band config, 150 steps on one seeded batch; checks the
+           mel loss below 0.7 of the first step's, finite losses, one MAS
+           launch on the card a step; step ms, a profiled step
+  surface  the library surface no shipped config runs, at the flagship's
+           widths: TransformerDecoder [2,192,400] on a [2,192,160] memory,
+           MultiHeadAttention with heads_share=False, block_length 4, the
+           proximal bias and init, cross-attention, ConvReluNorm, the
+           timing signals, each on the card against the CPU (max-abs <=
+           1e-4; ms); utils.profile_trace around one flagship infer must
+           write a trace naming a CUDA kernel
   serve    flagship config, seeded random weights: warmup() of the default
            (text, frame) bucket pairs; 8 requests of filelist lines whose
            token counts warmup did not run (per request tokens, buckets,
@@ -131,8 +143,8 @@ Phases, one JSON line each:
 The serving phases run last, as the serving module pins cuDNN's
 deterministic algorithms for the process. Every phase's line carries its
 wall seconds. Then one {"kernels": [...]} line (launch counts from the
-forward, train, train_sdp, train_ms, eval_ms, train_cli, train_data, ddp
-and tp run, the spawned ranks' own counts added, and serving,
+forward, train, train_sdp, train_ms, eval_ms, train_cli, train_data, ddp,
+tp and overfit run, the spawned ranks' own counts added, and serving,
 times, bounds;
 `launches` counts the first
 kernel of a port and `launches_by_kernel` each of its kernels: mas_bwd is
@@ -337,7 +349,7 @@ def check_kernels(neg_cent, mask, lengths):
     fused = mas.mas_fused(nc, t_ys, t_xs)
     bits = mas.mas_forward_bits(nc, t_ys, t_xs)
     bwd = mas.mas_backtrack(mas.pack_decisions(dec), t_ys, t_xs, t_x)
-    chained = {f: mas.maximum_path(neg_cent, mask, impl="kernel", force=f)
+    chained = {f: mas.maximum_path(neg_cent, mask, True, force=f)
                for f in ("fused", "two_pass")}
     torch.cuda.synchronize()
     fwd_dec = mas.unpack_decisions(bits, t_x)
@@ -1135,7 +1147,7 @@ def phase_forward():
         _, m_p, logs_p, _ = model.enc_p(x, x_lengths)
         neg_cent = mas_neg_cent(latents[1].transpose(1, 2), m_p, logs_p)
     mask = (y_mask * x_mask.transpose(1, 2)).float()
-    plain = mas.maximum_path(neg_cent, mask, impl="plain")
+    plain = mas.maximum_path(neg_cent, mask, use_pallas=False)
     checks = {
         "attn_equals_plain": torch.equal(attn, plain),
         "attn_rows_sum_to_mask": torch.equal(attn.sum(-1), y_mask[..., 0]),
@@ -1260,7 +1272,7 @@ def run_train_steps(state, batch, timed_steps, after_first=None):
              "d_step_ms": d0.elapsed_time(d1),
              "g_step_ms": g0.elapsed_time(g1)}
     peak = torch.cuda.max_memory_allocated()
-    plain = mas.maximum_path(mas_io["neg_cent"], mas_io["mask"], impl="plain")
+    plain = mas.maximum_path(mas_io["neg_cent"], mas_io["mask"], False)
 
     n0 = mas_launches()
     profile = profile_call(lambda: (tstep.train_step(state, batch),
@@ -2551,6 +2563,181 @@ def phase_tp():
         raise AssertionError(f"tp checks failed: {failed}")
 
 
+OVERFIT_STEPS = 150  # the JAX script's default
+SURFACE_T, SURFACE_T_KV = 400, 160  # the surface phase's query and memory
+SURFACE_BAR = 1e-4  # card against CPU, max-abs, f32 with TF32 off
+
+
+def phase_overfit():
+    """The JAX package's overfit gate (`scripts/overfit_check.py`) on the
+    card, through the port's `overfit_check.run` in this process: the tiny
+    multi-band config trained for OVERFIT_STEPS steps on one seeded batch.
+    Checks the mel loss's drop below 0.7 of its first value, finite losses
+    and one MAS launch on the card a step; then a fresh state's third
+    step, profiled (device ms, cudaLaunchKernel calls)."""
+    import torch
+
+    from mb_istft_vits_torch import overfit_check
+    from mb_istft_vits_torch.ops import mas
+    from mb_istft_vits_torch.train import step as tstep
+
+    before = dict(mas.launch_counts)
+    result = overfit_check.run(OVERFIT_STEPS, "cuda")
+    launched = {k: mas.launch_counts[k] - before[k] for k in before}
+
+    cfg = overfit_check.tiny_config()
+    state = tstep.create_train_state(cfg, torch.device("cuda"), seed=0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             overfit_check.synthetic_batch(cfg).items()}
+    for _ in range(2):
+        tstep.train_step(state, batch)
+    profile = profile_call(lambda: (tstep.train_step(state, batch),
+                                    torch.cuda.synchronize()))
+    ms = result["step_ms"]
+    checks = {
+        "mel_below_0.7_of_first": result["last_mel"]
+        < overfit_check.DROP * result["first_mel"],
+        "losses_finite": all(math.isfinite(v)
+                             for v in result["metrics"].values()),
+        "mas_on_the_card_each_step":
+        launched["mas_fused"] + launched["mas_fwd"] == OVERFIT_STEPS,
+    }
+    emit("overfit", steps=OVERFIT_STEPS, first_mel=result["first_mel"],
+         last_mel=result["last_mel"],
+         mel_ratio=result["last_mel"] / result["first_mel"],
+         metrics=result["metrics"],
+         mas_shape=[int(batch["x"].shape[0]), int(batch["spec"].shape[1]),
+                    int(batch["x"].shape[1])],
+         mas_launches=launched, first_step_ms=ms[0],
+         step_ms_median=statistics.median(ms[1:]), profile=profile,
+         device_ms=profile["device_ms"],
+         cuda_launch_kernel_calls=profile["cuda_launch_kernel_calls"],
+         checks=checks)
+    del state, batch
+    torch.cuda.empty_cache()
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"overfit checks failed: {failed}")
+
+
+def phase_surface():
+    """The library surface the shipped configs do not run, at the
+    flagship's widths (hidden, filter, heads, layers, kernel of
+    ljs_mb_istft_vits.json), seeded weights, eval mode, f32 with TF32 off:
+    the TransformerDecoder on [2, C, 400] against a [2, C, 160] memory,
+    MultiHeadAttention with heads_share=False, with block_length 4, with
+    the proximal bias and init, and as cross-attention, ConvReluNorm with
+    a random projection, and the three timing signals, each on the card
+    against the same weights and inputs on the CPU (max-abs <=
+    SURFACE_BAR; ms on the card). Then `utils.profile_trace` around one
+    flagship Synthesizer.infer on the card: its trace must name a CUDA
+    kernel."""
+    import copy
+    import glob
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from mb_istft_vits_torch import nn as pnn
+    from mb_istft_vits_torch import ops as pops
+    from mb_istft_vits_torch.config import Config
+    from mb_istft_vits_torch.models import Synthesizer
+    from mb_istft_vits_torch.utils import profile_trace
+
+    cfg = Config.from_json(CONFIG)
+    m = cfg.model
+    hc, heads = m.hidden_channels, m.n_heads
+    gen = torch.Generator().manual_seed(11)
+
+    def mask_of(lengths, t):  # [B, 1, T]
+        return (torch.arange(t)[None] < torch.tensor(lengths)[:, None]
+                ).float()[:, None]
+
+    x = torch.randn((2, hc, SURFACE_T), generator=gen)
+    h = torch.randn((2, hc, SURFACE_T_KV), generator=gen)
+    x_mask = mask_of([SURFACE_T, 311], SURFACE_T)
+    h_mask = mask_of([SURFACE_T_KV, 97], SURFACE_T_KV)
+    self_mask = x_mask.unsqueeze(2) * x_mask.unsqueeze(-1)
+    cross_mask = h_mask.unsqueeze(2) * x_mask.unsqueeze(-1)
+    torch.manual_seed(12)
+    crn = pnn.ConvReluNorm(hc, hc, hc, 5, 3)
+    with torch.no_grad():  # the zero projection would make it the identity
+        crn.proj.weight.copy_(0.05 * torch.randn(crn.proj.weight.shape,
+                                                 generator=gen))
+    cases = {
+        "transformer_decoder": (pnn.TransformerDecoder(
+            hc, m.filter_channels, heads, m.n_layers, m.kernel_size),
+            (x, x_mask, h, h_mask)),
+        "mha_heads_share_false": (pnn.MultiHeadAttention(
+            hc, hc, heads, heads_share=False), (x, self_mask)),
+        "mha_block_length_4": (pnn.MultiHeadAttention(
+            hc, hc, heads, block_length=4), (x, self_mask)),
+        "mha_proximal_bias_init": (pnn.MultiHeadAttention(
+            hc, hc, heads, window_size=None, proximal_bias=True,
+            proximal_init=True), (x, pnn.subsequent_mask(SURFACE_T))),
+        "mha_cross_attention": (pnn.MultiHeadAttention(
+            hc, hc, heads, window_size=None), (x, cross_mask, h)),
+        "conv_relu_norm": (crn, (x, x_mask)),
+        "get_timing_signal_1d": (lambda x: pops.get_timing_signal_1d(
+            SURFACE_T, hc, device=x.device), (x,)),
+        "add_timing_signal_1d": (pops.add_timing_signal_1d, (x,)),
+        "cat_timing_signal_1d": (pops.cat_timing_signal_1d, (x,)),
+    }
+    rows = {}
+    with torch.no_grad():
+        for name, (fn, args) in cases.items():
+            card_fn = fn
+            if isinstance(fn, torch.nn.Module):
+                fn.eval()
+                card_fn = copy.deepcopy(fn).cuda()
+            card_args = tuple(a.cuda() for a in args)
+            ref = fn(*args)
+            out = card_fn(*card_args)
+            torch.cuda.synchronize()
+            rows[name] = {
+                "shape": list(out.shape),
+                "max_abs_err": float((out.cpu() - ref).abs().max()),
+                "ms": time_ms(lambda: card_fn(*card_args)),
+                "finite": bool(torch.isfinite(out).all())}
+
+    torch.manual_seed(13)
+    net = Synthesizer(m).cuda().eval()
+    ids = torch.randint(1, m.n_vocab, (1, 120), generator=gen).cuda()
+    lengths = torch.tensor([120]).cuda()
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with torch.no_grad(), profile_trace(trace_dir) as prof:
+            net.infer(ids, lengths, max_frames=1000,
+                      generator=torch.Generator("cuda").manual_seed(14))
+            torch.cuda.synchronize()
+        traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+        events = []
+        for path in traces:
+            with open(path) as f:
+                events += json.load(f)["traceEvents"]
+        trace_bytes = sum(os.path.getsize(p) for p in traces)
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    del net
+    torch.cuda.empty_cache()
+    checks = {f"{k}_within_{SURFACE_BAR}": r["max_abs_err"] <= SURFACE_BAR
+              and r["finite"] for k, r in rows.items()}
+    checks["trace_names_a_cuda_kernel"] = len(traces) == 1 and bool(kernels)
+    emit("surface", widths={"hidden": hc, "filter": m.filter_channels,
+                            "heads": heads, "layers": m.n_layers,
+                            "kernel": m.kernel_size},
+         t=SURFACE_T, t_kv=SURFACE_T_KV, modules=rows,
+         trace={"files": len(traces), "bytes": trace_bytes,
+                "kernel_events": len(kernels),
+                "distinct_kernels": len(set(kernels)),
+                "first_kernels": sorted(set(kernels))[:3],
+                "device_ms": device_ms},
+         checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"surface checks failed: {failed}")
+
+
 def phase_serve_mesh():
     """The serving mesh: `SynthesisModule(mesh=[cuda:0, cuda:0])` (two mesh
     positions on the one card, sharing its replica) against the
@@ -2820,6 +3007,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         run_phase(phase_ddp, root)
         run_phase(phase_tp)
+        run_phase(phase_overfit)
+        run_phase(phase_surface)
         # last: the serving modules pin cuDNN's deterministic algorithms
         # for the rest of the process
         run_phase(phase_serve)

@@ -37,3 +37,5 @@ run on CUDA unless the caller passes device="cpu".
 """
 
 __version__ = "0.1.0"
+
+from mb_istft_vits_torch.config import HParams, load_hparams  # noqa: F401,E402

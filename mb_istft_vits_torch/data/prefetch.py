@@ -13,14 +13,16 @@ epoch-seeded order.
 host batch, every key of it (`spec` too on the host-spec feed), goes
 through pinned memory by a non-blocking copy on a side stream, and the
 consumer's stream waits on that copy's event before the batch is used.
-At most `depth` batches are in flight.
+At most `depth` batches are in flight. Given JAX's `put` instead, it runs
+it on a worker thread ahead of the consumer, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import collections
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterable, Iterator, List, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -78,12 +80,23 @@ def prefetch_epoch(batcher: BucketedBatcher, epoch: int,
 
 
 def device_prefetch(batches: Iterable[Dict[str, np.ndarray]],
-                    device: torch.device, depth: int = 2
-                    ) -> Iterator[Dict[str, torch.Tensor]]:
-    """Host batches -> the same batches as tensors on `device`. On CUDA the
-    copies run `depth` batches ahead on a side stream (pinned memory,
-    non-blocking) and the current stream waits on each copy's event
-    before its batch is handed out; elsewhere the copy is in line."""
+                    put: Optional[Callable[[Dict[str, np.ndarray]], Any]]
+                    = None, depth: int = 2, *,
+                    device: Optional[torch.device] = None) -> Iterator[Any]:
+    """Host batches -> the same batches placed ahead of their use, at most
+    `depth` in flight.
+
+    `put` is JAX's: a callable that places one host batch, run on one
+    worker thread `depth` batches ahead of the consumer. Without it the
+    batches become tensors on `device`: on CUDA the copies run on a side
+    stream (pinned memory, non-blocking) and the current stream waits on
+    each copy's event before its batch is handed out; elsewhere the copy
+    is in line."""
+    if put is not None:
+        yield from _put_ahead(batches, put, depth)
+        return
+    if device is None:
+        raise ValueError("device_prefetch needs `put` or `device`")
     it = iter(batches)
     if device.type != "cuda":
         for host in it:
@@ -92,7 +105,7 @@ def device_prefetch(batches: Iterable[Dict[str, np.ndarray]],
     side = torch.cuda.Stream(device)
     queue: collections.deque = collections.deque()
 
-    def put(host):
+    def to_card(host):
         pinned = {k: torch.from_numpy(v).pin_memory() for k, v in host.items()}
         # the copy and its event on `device`, whichever card is current
         with torch.cuda.device(device), torch.cuda.stream(side):
@@ -103,7 +116,7 @@ def device_prefetch(batches: Iterable[Dict[str, np.ndarray]],
         queue.append((on_card, ready))
 
     for host in it:
-        put(host)
+        to_card(host)
         if len(queue) >= max(1, depth):
             break
     while queue:
@@ -116,5 +129,26 @@ def device_prefetch(batches: Iterable[Dict[str, np.ndarray]],
             v.record_stream(current)
         host = next(it, None)
         if host is not None:
-            put(host)
+            to_card(host)
         yield on_card
+
+
+def _put_ahead(batches, put, depth: int):
+    """put(batch) for each batch on one worker thread, `depth` batches
+    ahead of the consumer (JAX `device_prefetch`)."""
+    pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="h2d")
+    buf: collections.deque = collections.deque()
+    it = iter(batches)
+    try:
+        for host in it:
+            buf.append(pool.submit(put, host))
+            if len(buf) >= max(1, depth):
+                break
+        while buf:
+            placed = buf.popleft().result()
+            host = next(it, None)
+            if host is not None:
+                buf.append(pool.submit(put, host))
+            yield placed
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)

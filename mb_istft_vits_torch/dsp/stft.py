@@ -2,8 +2,9 @@
 `mb_istft_vits_tpu/dsp/stft.py`), on `torch.stft` / `torch.istft`.
 
   - `stft` / `stft_magnitude`: onesided STFT, periodic Hann window
-    zero-padded to n_fft at the centre; center=True reflect-pads n_fft//2
-    a side, as the MR-STFT loss does (reference `stft_loss.py:12-28`).
+    zero-padded to n_fft at the centre; center=True pads n_fft//2 a side
+    in `pad_mode` (reflect by default, as the MR-STFT loss does, reference
+    `stft_loss.py:12-28`).
   - `spectrogram`: the training front end (reference
     `mel_processing.py:51-70`): constant-pad (n_fft - hop)/2 a side with
     zeros, then center=False. This fork of the reference pads with zeros,
@@ -29,7 +30,14 @@ import torch
 import torch.nn.functional as F
 
 
-def hann_window(win_length: int,
+# numpy's pad modes (what `jnp.pad` takes in the JAX package) in
+# torch.stft's names; "reflect" and "constant" are the two the reference
+# uses
+_PAD_MODES = {"reflect": "reflect", "constant": "constant",
+              "edge": "replicate", "wrap": "circular"}
+
+
+def hann_window(win_length: int, *,
                 device: Optional[torch.device] = None) -> torch.Tensor:
     """Periodic Hann window [win_length] in float32, as
     scipy.signal.get_window('hann', n, fftbins=True) at reference
@@ -42,29 +50,36 @@ def padded_window(win_length: int, n_fft: int,
                   device: torch.device) -> torch.Tensor:
     """Periodic Hann window of win_length, zero-padded at the centre of
     n_fft (JAX `_padded_window`; what torch.stft does to a short window)."""
-    win = hann_window(win_length, device)
+    win = hann_window(win_length, device=device)
     left = (n_fft - win_length) // 2
     return F.pad(win, (left, n_fft - win_length - left))
 
 
 def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
-         center: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+         center: bool = True, pad_mode: str = "reflect"
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Onesided STFT of y [B, T] (or [T]) -> (real, imag), each
-    [B, n_bins, F]; center=True reflect-pads."""
+    [B, n_bins, F]. center=True pads n_fft // 2 a side in `pad_mode`, one
+    of numpy's "reflect", "constant" (zeros), "edge" or "wrap"."""
+    if pad_mode not in _PAD_MODES:
+        raise ValueError(f"pad_mode {pad_mode!r} is not one of "
+                         f"{sorted(_PAD_MODES)}")
     if y.dim() == 1:
         y = y[None]
     spec = torch.stft(y, n_fft, hop_length, n_fft,
                       window=padded_window(win_length, n_fft, y.device),
-                      center=center, pad_mode="reflect", return_complex=True)
+                      center=center, pad_mode=_PAD_MODES[pad_mode],
+                      return_complex=True)
     return spec.real, spec.imag
 
 
 def stft_magnitude(y: torch.Tensor, n_fft: int, hop_length: int,
-                   win_length: int, center: bool = True, eps: float = 0.0
+                   win_length: int, center: bool = True,
+                   pad_mode: str = "reflect", eps: float = 0.0
                    ) -> torch.Tensor:
     """|STFT| [B, n_bins, F]; eps > 0 clamps the power from below, as
     `stft_loss.py:28` does."""
-    real, imag = stft(y, n_fft, hop_length, win_length, center)
+    real, imag = stft(y, n_fft, hop_length, win_length, center, pad_mode)
     power = real * real + imag * imag
     if eps:
         power = torch.clamp(power, min=eps)

@@ -89,7 +89,7 @@ class StochasticDurationPredictor(nn.Module):
 
     The draws are explicit: `noise` [B, 2, T] is the NLL's posterior noise
     e_q or the reverse's z (unit normal; the reverse scales it by
-    `noise_scale`); without it, it is drawn from `generator`."""
+    `noise_scale`); without it, it is drawn from `noise_rng`."""
 
     def __init__(self, in_channels: int, filter_channels: int,
                  kernel_size: int, p_dropout: float, n_flows: int = 4,
@@ -136,17 +136,18 @@ class StochasticDurationPredictor(nn.Module):
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
                 w: Optional[torch.Tensor] = None,
                 g: Optional[torch.Tensor] = None, reverse: bool = False,
-                noise_scale: float = 1.0, *,
-                noise: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                noise_scale: float = 1.0,
+                noise_rng: Optional[torch.Generator] = None, *,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x [B, H, T] text states, x_mask [B, 1, T], w [B, 1, T] frame
         counts (the NLL's target), g [B, gin, 1] or None -> the NLL [B]
         (`nll`) or, reversed, logw [B, 1, T] sampled from the noise z
-        [B, 2, T] times `noise_scale`."""
+        [B, 2, T] times `noise_scale`. The noise is `noise`, else drawn
+        from `noise_rng` (JAX's key slot: a `torch.Generator`)."""
         if not reverse:
-            return self.nll(x, x_mask, w, g, noise=noise, generator=generator)
+            return self.nll(x, x_mask, w, g, noise_rng, noise=noise)
         x = self._text(x, x_mask, g)
-        z = self._noise(noise, x, generator) * noise_scale
+        z = self._noise(noise, x, noise_rng) * noise_scale
         for i in range(self.n_flows - 1, 0, -1):
             z = self.flows[1 + 2 * i](flip_channels(z), x_mask, x,
                                       reverse=True)
@@ -154,18 +155,18 @@ class StochasticDurationPredictor(nn.Module):
         return z[:, :1]
 
     def nll(self, x: torch.Tensor, x_mask: torch.Tensor, w: torch.Tensor,
-            g: Optional[torch.Tensor] = None, *,
-            noise: Optional[torch.Tensor] = None,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            g: Optional[torch.Tensor] = None,
+            noise_rng: Optional[torch.Generator] = None, *,
+            noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The training NLL [B] of the durations w [B, 1, T] plus the
         variational log q (reference models.py:64-91); `noise` [B, 2, T]
-        is the posterior noise e_q."""
+        is the posterior noise e_q, else drawn from `noise_rng`."""
         x = self._text(x, x_mask, g)
         # variational posterior of the dequantization u and of z1
         # (reference models.py:64-84)
         h_w = self.post_proj(self.post_convs(self.post_pre(w), x_mask))
         h_w = h_w * x_mask
-        e_q = self._noise(noise, x, generator) * x_mask
+        e_q = self._noise(noise, x, noise_rng) * x_mask
         z_q, logdet_q = _flows_forward(self.post_flows, e_q, x_mask, x + h_w)
         z_u, z1 = z_q[:, :1], z_q[:, 1:]
         u = torch.sigmoid(z_u) * x_mask

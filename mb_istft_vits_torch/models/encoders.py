@@ -59,17 +59,18 @@ class PosteriorEncoder(nn.Module):
 
     def forward(self, y: torch.Tensor, y_lengths: torch.Tensor,
                 g: Optional[torch.Tensor] = None,
-                eps: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                noise_rng: Optional[torch.Generator] = None, *,
+                eps: Optional[torch.Tensor] = None):
         """y [B, spec, T], g [B, gin, 1] or None -> (z, m, logs [B, C, T],
         y_mask [B, 1, T]). `eps` is the posterior noise [B, C, T]; drawn
-        from `generator` when not given."""
+        from `noise_rng` (JAX's key slot: a `torch.Generator`) when not
+        given."""
         y_mask = sequence_mask(y_lengths, y.shape[2]).unsqueeze(1).to(y.dtype)
         h = self.enc(self.pre(y) * y_mask, y_mask, g)
         stats = self.proj(h) * y_mask
         m, logs = torch.split(stats, self.out_channels, dim=1)
         if eps is None:
-            eps = torch.randn(m.shape, generator=generator, dtype=m.dtype,
+            eps = torch.randn(m.shape, generator=noise_rng, dtype=m.dtype,
                               device=m.device)
         z = (m + eps * torch.exp(logs)) * y_mask
         return z, m, logs, y_mask

@@ -186,8 +186,8 @@ class Synthesizer(nn.Module):
     def _posterior(self, y, y_lengths, g, posterior_eps, generator):
         return self.enc_q(
             _cl(y), y_lengths, g,
-            eps=None if posterior_eps is None else _cl(posterior_eps),
-            generator=generator)
+            noise_rng=generator,
+            eps=None if posterior_eps is None else _cl(posterior_eps))
 
     # ------------------------------------------------------------------
     # training forward (reference models.py:657-695)
@@ -242,8 +242,9 @@ class Synthesizer(nn.Module):
         if cfg.use_sdp:
             l_length = self.dp(
                 h, x_mask, w.to(h.dtype), g,
+                noise_rng=generator,
                 noise=None if sdp_eps is None else _cl(sdp_eps),
-                generator=generator).float() / torch.sum(x_mask32)
+                ).float() / torch.sum(x_mask32)
         else:
             logw_ = torch.log(w + 1e-6) * x_mask32
             logw = self.dp(h, x_mask, g).float()
@@ -255,8 +256,7 @@ class Synthesizer(nn.Module):
         logs_p = torch.matmul(logs_p, _cl(attn))
 
         z_slice, ids_slice = rand_slice_segments(
-            z, y_lengths, cfg.segment_size, generator=generator,
-            ids_str=ids_slice)
+            z, generator, y_lengths, cfg.segment_size, ids_str=ids_slice)
         o, o_mb, _, _ = self._decode(z_slice, g)
         return (o, o_mb, l_length, attn, ids_slice, _cl(x_mask), _cl(y_mask),
                 tuple(_cl(t) for t in (z, z_p, m_p, logs_p, m_q, logs_q)))
@@ -282,7 +282,7 @@ class Synthesizer(nn.Module):
         z, _, _, _ = self._posterior(y, y_lengths, g, posterior_eps,
                                      generator)
         z_slice, ids_slice = rand_slice_segments(
-            z, y_lengths, self.cfg.segment_size, generator=generator,
+            z, generator, y_lengths, self.cfg.segment_size,
             ids_str=ids_slice)
         return self._decode(z_slice, g)[0], ids_slice
 
@@ -302,8 +302,8 @@ class Synthesizer(nn.Module):
         if self.cfg.use_sdp:
             logw = self.dp(h, x_mask, g=g, reverse=True,
                            noise_scale=noise_scale_w,
-                           noise=None if w_eps is None else _cl(w_eps),
-                           generator=generator)
+                           noise_rng=generator,
+                           noise=None if w_eps is None else _cl(w_eps))
         else:
             logw = self.dp(h, x_mask, g)
         # exp(logw) in the compute dtype, the product and ceil in float32,

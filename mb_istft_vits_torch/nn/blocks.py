@@ -1,6 +1,6 @@
-"""Composite conv blocks: the dilated depth-separable stack (DDSConv),
-gated WaveNet (WN) and HiFi-GAN ResBlocks (counterpart of
-`mb_istft_vits_tpu/nn/blocks.py`; reference `modules.py:70-262`). All on
+"""Composite conv blocks: ConvReluNorm, the dilated depth-separable stack
+(DDSConv), gated WaveNet (WN) and HiFi-GAN ResBlocks (counterpart of
+`mb_istft_vits_tpu/nn/blocks.py`; reference `modules.py:35-262`). All on
 [B, C, T] with masks [B, 1, T].
 
 Global (speaker) conditioning g is [B, gin, 1]. WN adds it through one
@@ -23,6 +23,39 @@ from mb_istft_vits_torch.nn.layers import (
     get_padding,
     leaky_relu,
 )
+
+
+class ConvReluNorm(nn.Module):
+    """Conv -> LayerNorm -> ReLU -> dropout, `n_layers` (> 1) times, then
+    a zero-initialised 1x1 projection added back to the input, so the
+    block starts as the identity (reference modules.py:35-67). Unused by
+    the shipped configs; part of the reference's surface. The residual
+    needs out_channels == in_channels."""
+
+    def __init__(self, in_channels: int, hidden_channels: int,
+                 out_channels: int, kernel_size: int, n_layers: int,
+                 p_dropout: float = 0.0):
+        super().__init__()
+        if n_layers <= 1:
+            raise ValueError(f"ConvReluNorm needs n_layers > 1, got "
+                             f"{n_layers}")
+        self.conv_layers = nn.ModuleList(
+            Conv1d(in_channels if i == 0 else hidden_channels,
+                   hidden_channels, kernel_size, padding=kernel_size // 2)
+            for i in range(n_layers))
+        self.norm_layers = nn.ModuleList(LayerNorm(hidden_channels)
+                                         for _ in range(n_layers))
+        self.drop = nn.Dropout(p_dropout)
+        self.proj = Conv1d(hidden_channels, out_channels, 1)
+        nn.init.zeros_(self.proj.weight)
+        nn.init.zeros_(self.proj.bias)
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+        """x [B, in_channels, T], x_mask [B, 1, T]."""
+        x_org = x
+        for conv, norm in zip(self.conv_layers, self.norm_layers):
+            x = self.drop(torch.relu(norm(conv(x * x_mask))))
+        return (x_org + self.proj(x)) * x_mask
 
 
 class DDSConv(nn.Module):

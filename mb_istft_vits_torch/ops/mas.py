@@ -14,7 +14,7 @@ and `chip_smoke.py` hold the kernels against it.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
@@ -198,28 +198,34 @@ def fused_fits(t_y: int, t_x: int, device: torch.device) -> bool:
 
 
 def maximum_path(neg_cent: torch.Tensor, mask: torch.Tensor,
-                 impl: str = "auto", force: str = "auto") -> torch.Tensor:
+                 use_pallas: Union[str, bool] = "auto", *,
+                 force: str = "auto") -> torch.Tensor:
     """Hard monotonic alignment (reference `monotonic_align.maximum_path`).
 
-    impl: "auto" launches the kernels for a CUDA tensor and runs the plain
-    version for a CPU one; "kernel" and "plain" pin one (a CPU tensor with
-    "kernel" raises). force: "auto" picks the fused kernel when its shared
-    memory fits one block and the two-pass pair otherwise; "fused" and
-    "two_pass" pin one, as `maximum_path_pallas(force=...)` does.
+    use_pallas is the JAX package's third slot, whose True picks its
+    Pallas kernels: here True launches the CUDA kernels that port them (a
+    CPU tensor raises: they need the card), False runs the plain version,
+    and "auto" launches the kernels for a CUDA tensor and runs the plain
+    version for a CPU one. force: "auto" picks the fused kernel when its
+    shared memory fits one block and the two-pass pair otherwise; "fused"
+    and "two_pass" pin one, as `maximum_path_pallas(force=...)` does.
 
     The kernels read neg_cent only inside each item's band, where the
     [B, T_y, T_x] product mask is 1, so they skip the `neg_cent * mask`
     that the plain version computes: the result is the same.
     """
-    if impl not in ("auto", "kernel", "plain"):
-        raise ValueError(f"impl must be auto|kernel|plain, got {impl!r}")
+    if use_pallas not in ("auto", True, False):
+        raise ValueError("use_pallas must be 'auto', True or False, got "
+                         f"{use_pallas!r}")
     if force not in ("auto", "fused", "two_pass"):
         raise ValueError(f"force must be auto|fused|two_pass, got {force!r}")
-    if impl == "plain" or (impl == "auto" and not neg_cent.is_cuda):
+    if use_pallas == "auto":
+        use_pallas = neg_cent.is_cuda
+    if not use_pallas:
         return maximum_path_plain(neg_cent, mask)
     if not neg_cent.is_cuda:
-        raise ValueError("impl='kernel' takes CUDA tensors; got "
-                         f"{neg_cent.device}")
+        raise ValueError("use_pallas=True launches the CUDA kernels, which "
+                         f"take CUDA tensors; got {neg_cent.device}")
     nc = neg_cent.float().contiguous()
     t_ys, t_xs = mas_lengths(mask)
     _, t_y, t_x = nc.shape

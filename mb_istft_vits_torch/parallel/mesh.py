@@ -91,13 +91,14 @@ def init_distributed(address: Optional[str] = None,
     return DistInfo(rank, world_size, dev)
 
 
-def create_mesh(num_devices: Optional[int] = None,
-                device_type: str = "cuda"):
+def create_mesh(num_devices: Optional[int] = None, axis_name: str = "data",
+                *, device_type: str = "cuda"):
     """The first `num_devices` devices (all of them by default). In a
-    process group: a 1-D `DeviceMesh` named "data" over the group's ranks,
-    one device each. Without one: a list of this process's devices, the
-    serving mesh (`device_type` "cpu" gives that many CPU devices, as JAX
-    tests force host devices). Fewer devices than asked raise."""
+    process group: a 1-D `DeviceMesh` whose one dimension is `axis_name`,
+    over the group's ranks, one device each. Without one: a list of this
+    process's devices, the serving mesh, whose one axis needs no name
+    (`device_type` "cpu" gives that many CPU devices, as JAX tests force
+    host devices). Fewer devices than asked raise."""
     if dist.is_initialized():
         from torch.distributed.device_mesh import init_device_mesh
 
@@ -106,7 +107,8 @@ def create_mesh(num_devices: Optional[int] = None,
         if n != world:
             raise ValueError(f"a data mesh of {n} devices in a process group "
                              f"of {world} ranks")
-        return init_device_mesh(device_type, (n,), mesh_dim_names=("data",))
+        return init_device_mesh(device_type, (n,),
+                                mesh_dim_names=(axis_name,))
     if device_type == "cpu":
         return [torch.device("cpu")] * (num_devices or 1)
     have = torch.cuda.device_count()
@@ -139,11 +141,13 @@ def mesh_size(mesh) -> int:
     return int(len(mesh) if size is None else size)
 
 
-def shard_batch(batch: Any, mesh: Sequence) -> List[Any]:
+def shard_batch(batch: Any, mesh: Sequence, axis_name: str = "data"
+                ) -> List[Any]:
     """Split each tensor's leading dim into equal parts over the serving
     mesh's devices: part i (rows [i * B/n:(i + 1) * B/n]) goes to device
     i, without blocking. Dicts, lists and tuples are walked; None passes
-    through."""
+    through. `axis_name` is JAX's: a serving mesh has one axis, the one
+    the batch is split over, whatever its name."""
     devices = mesh_devices(mesh)
     n = len(devices)
 

@@ -75,13 +75,14 @@ def create_2d_mesh(n_model: int, n_data: Optional[int] = None,
     return DeviceMesh(device_type, ranks, mesh_dim_names=("data", "model"))
 
 
-def param_spec(shape, axis_size: int,
+def param_spec(shape, axis_size: int, axis_name: str = "model", *,
                dims: Optional[Sequence[int]] = None) -> Optional[int]:
-    """The dimension of a leaf to shard over an axis of `axis_size`, or
-    None to replicate it: the first of `dims` that the axis divides (JAX's
-    order: the trailing dimension first when `dims` is not given). 1-D
-    leaves replicate: they are negligible, and sharding them would reshard
-    every elementwise add."""
+    """The dimension of a leaf to shard over the mesh axis `axis_name` of
+    `axis_size` devices, or None to replicate it: the first of `dims` that
+    the axis divides (JAX's order: the trailing dimension first when
+    `dims` is not given). JAX returns the `PartitionSpec` that names
+    `axis_name` at this dimension. 1-D leaves replicate: they are
+    negligible, and sharding them would reshard every elementwise add."""
     if len(shape) < 2:
         return None
     for d in (range(len(shape) - 1, -1, -1) if dims is None else dims):
@@ -102,15 +103,17 @@ def torch_dims(module: torch.nn.Module, ndim: int) -> Tuple[int, ...]:
     return tuple(range(ndim - 1, -1, -1))
 
 
-def param_shardings(net: torch.nn.Module, axis_size: int
+def param_shardings(net: torch.nn.Module, mesh, axis_name: str = "model"
                     ) -> Dict[str, Optional[int]]:
-    """{parameter name: the dimension sharded over "model", or None}."""
+    """{parameter name of `net`: the dimension sharded over the mesh axis
+    `axis_name`, or None}. `mesh` is a `DeviceMesh` or that axis's size."""
+    axis_size = mesh if isinstance(mesh, int) else mesh[axis_name].size()
     out = {}
     for mname, module in net.named_modules():
         for pname, p in module.named_parameters(recurse=False):
             name = f"{mname}.{pname}" if mname else pname
-            out[name] = param_spec(p.shape, axis_size,
-                                   torch_dims(module, p.ndim))
+            out[name] = param_spec(p.shape, axis_size, axis_name,
+                                   dims=torch_dims(module, p.ndim))
     return out
 
 
@@ -126,9 +129,8 @@ def shard_train_state_tp(state, mesh, axis_name: str = "model"):
 
     from mb_istft_vits_torch.train.step import make_optimizer
 
-    axis_size = mesh[axis_name].size()
     for net in (state.net_g, state.net_d):
-        dims = param_shardings(net, axis_size)
+        dims = param_shardings(net, mesh, axis_name)
         params = dict(net.named_parameters())
         placement = {params[k]: Shard(d) for k, d in dims.items()
                      if d is not None}

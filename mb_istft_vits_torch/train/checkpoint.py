@@ -38,7 +38,7 @@ def save(model_dir: str, state: TrainState) -> None:
     (`parallel.tp`) is gathered whole, a collective every rank enters;
     rank 0 writes it."""
     # the lr of the last step taken
-    lr = make_lr_schedule(state.cfg.train)(
+    lr = make_lr_schedule(state.cfg)(
         max(state.step - 1 - state.lr_offset, 0))
     for prefix, net, optim in (("D", state.net_d, state.optim_d),
                                ("G", state.net_g, state.optim_g)):

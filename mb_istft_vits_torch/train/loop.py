@@ -257,7 +257,7 @@ def _batches(batcher: BucketedBatcher, first_epoch: int, epochs: int,
             continue
         with contextlib.closing(device_prefetch(
                 prefetch_epoch(batcher, epoch, LOADER_THREADS),
-                device)) as epoch_batches:
+                device=device)) as epoch_batches:
             yield from epoch_batches
 
 

@@ -125,16 +125,17 @@ class TrainState:
 
     def learning_rate(self) -> float:
         """The lr of the next step."""
-        return make_lr_schedule(self.cfg.train)(self.step - self.lr_offset)
+        return make_lr_schedule(self.cfg)(self.step - self.lr_offset)
 
     def step_generator(self) -> torch.Generator:
         return torch.Generator(self.device).manual_seed(
             self.seed * 1_000_003 + self.step + (self.data_rank << 32))
 
 
-def make_lr_schedule(train_cfg: TrainConfig) -> Callable[[int], float]:
-    """lr0 * lr_decay ^ epoch, stepped per epoch like the reference's
-    ExponentialLR (train_latest.py:124-125,134-135)."""
+def make_lr_schedule(cfg: Config) -> Callable[[int], float]:
+    """lr0 * lr_decay ^ epoch of `cfg.train`, stepped per epoch like the
+    reference's ExponentialLR (train_latest.py:124-125,134-135)."""
+    train_cfg = cfg.train
     spe = max(train_cfg.steps_per_epoch, 1)
 
     def schedule(step: int) -> float:

@@ -1,5 +1,5 @@
 """Observability: TensorBoard summaries, the spectrogram and alignment
-plots, and the trainer's anomaly mode (counterpart of
+plots, the trainer's anomaly mode and profiler traces (counterpart of
 `mb_istft_vits_tpu/utils/observability.py`; reference `utils.py:63-136`).
 
 The writer is a `tensorboardX.SummaryWriter` made by the caller, and
@@ -9,6 +9,7 @@ import this module.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import wave
 from typing import Dict, Optional
@@ -124,3 +125,23 @@ def enable_nan_debugging() -> None:
     import torch
 
     torch.autograd.set_detect_anomaly(True)
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """Profile the block with `torch.profiler` (host ops, and the card's
+    kernels when CUDA is available) and write a Chrome trace
+    (`*.pt.trace.json`, viewable in Perfetto or TensorBoard) into
+    `log_dir` when it ends: the JAX package's `jax.profiler` trace.
+    Yields the profiler, whose `key_averages()` can be read after the
+    block."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof

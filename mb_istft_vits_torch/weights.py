@@ -3,10 +3,13 @@ port's state dicts.
 
 The port's modules carry the reference `SynthesizerTrn` and
 `MultiPeriodDiscriminator` state-dict names, so a reference checkpoint
-loads as it is. `state_dict_from_jax` is the port's own copy of the JAX
-package's `export_torch_generator` mapping (`train/checkpoint.py:438-593`)
-for every decoder head, multi-speaker models and the stochastic duration
-predictor; `discriminator_state_dict_from_jax` is the inverse of its
+loads as it is. `module_state_dict_from_jax` carries the params of one
+`nn` module (the attention modules, `ConvReluNorm`) across, for the
+modules the shipped models do not hold. `state_dict_from_jax` is the
+port's own copy of the JAX package's `export_torch_generator` mapping
+(`train/checkpoint.py:438-593`) for every decoder head, multi-speaker
+models and the stochastic duration predictor;
+`discriminator_state_dict_from_jax` is the inverse of its
 `import_torch_discriminator` (`:603-637`).
 
 The stochastic duration predictor's `ElementwiseAffine` parameters
@@ -191,6 +194,57 @@ def discriminator_state_dict_from_jax(params: Mapping
         for j in range(n_convs):
             wn_conv(tree[f"convs_{j}"], f"discriminators.{i}.convs.{j}")
         wn_conv(tree["conv_post"], f"discriminators.{i}.conv_post")
+    return sd
+
+
+def module_state_dict_from_jax(params: Mapping, module: torch.nn.Module
+                               ) -> Dict[str, torch.Tensor]:
+    """The JAX params of one `nn` module (its `init(...)["params"]`) ->
+    the state dict of the port's `module` of the same configuration: the
+    attention modules in every option (`MultiHeadAttention`, `FFN`,
+    `TransformerEncoder`, `TransformerDecoder`) and `ConvReluNorm`.
+
+    A flax submodule `name_i` is the port's `name[i]` (a ModuleList) unless
+    the port has a child `name_i` itself. Conv kernels [k, in, out] become
+    [out, in, k], a weight norm's g [n] becomes [n, 1, 1], LayerNorm's
+    gamma and beta and the relative-position tables copy as they are.
+    Raises unless every parameter of `module` is given once, at its
+    shape."""
+    from mb_istft_vits_torch.nn.layers import Conv1d
+
+    sd: Dict[str, torch.Tensor] = {}
+
+    def leaf(mod, key, value):
+        arr = np.asarray(value, dtype=np.float32)
+        if isinstance(mod, Conv1d) and key in ("kernel", "v"):
+            return ("weight" if key == "kernel" else "weight_v",
+                    arr.transpose(2, 1, 0))
+        if isinstance(mod, Conv1d) and key == "g":
+            return "weight_g", arr.reshape(-1, 1, 1)
+        return key, arr
+
+    def walk(tree, mod, prefix):
+        for key, sub in tree.items():
+            if not isinstance(sub, Mapping):
+                name, arr = leaf(mod, key, sub)
+                sd[prefix + name] = torch.from_numpy(arr.copy())
+                continue
+            listed = re.fullmatch(r"(.+)_(\d+)", key)
+            if not hasattr(mod, key) and listed:
+                child = getattr(mod, listed[1])[int(listed[2])]
+                walk(sub, child, f"{prefix}{listed[1]}.{listed[2]}.")
+            else:
+                walk(sub, getattr(mod, key), f"{prefix}{key}.")
+
+    walk(params, module, "")
+    want = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in sd.items()}
+    if got != want:
+        differ = [k for k in got.keys() & want.keys() if got[k] != want[k]]
+        raise KeyError(f"JAX params do not fill {type(module).__name__}: "
+                       f"missing {sorted(set(want) - set(got))}, extra "
+                       f"{sorted(set(got) - set(want))}, shapes differ at "
+                       f"{differ}")
     return sd
 
 

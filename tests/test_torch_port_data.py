@@ -230,7 +230,7 @@ def test_prefetch_carries_host_spectrograms(corpus):
                               BATCH)
     want = list(batcher.iter_epoch(2))
     got = list(device_prefetch(prefetch_epoch(batcher, 2, 3),
-                               torch.device("cpu")))
+                               device=torch.device("cpu")))
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert sorted(g) == sorted(w) and "spec" in g

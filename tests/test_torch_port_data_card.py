@@ -65,7 +65,7 @@ def test_host_spec_batches_reach_the_card(card, tmp_path):
     batcher = BucketedBatcher(TextAudioDataset(cfg.data.training_files,
                                                cfg.data), 2)
     want = list(batcher.iter_epoch(0))
-    got = list(device_prefetch(prefetch_epoch(batcher, 0, 4), card))
+    got = list(device_prefetch(prefetch_epoch(batcher, 0, 4), device=card))
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert "spec" in g and g["spec"].device.type == "cuda"

@@ -59,8 +59,8 @@ def _problem(case, device):
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(map(str, c[:3])))
 def test_kernels_bit_exact_to_plain(cuda_device, case, force):
     neg_cent, mask = _problem(case, cuda_device)
-    ours = mas.maximum_path(neg_cent, mask, impl="kernel", force=force)
-    plain = mas.maximum_path(neg_cent, mask, impl="plain")
+    ours = mas.maximum_path(neg_cent, mask, use_pallas=True, force=force)
+    plain = mas.maximum_path(neg_cent, mask, use_pallas=False)
     torch.cuda.synchronize()
     assert torch.equal(ours, plain)
     assert torch.equal(ours.sum(-1), mask[..., 0])  # one token per frame

@@ -134,14 +134,14 @@ def test_kernel_route_refuses_cpu_tensors():
     t_ys, t_xs = mas.mas_lengths(m)
     mas.reset_launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
-        mas.maximum_path(nc, m, impl="kernel")
+        mas.maximum_path(nc, m, use_pallas=True)
     for fn in (mas.mas_fused, mas.mas_forward_bits):
         with pytest.raises(ValueError, match="CUDA"):
             fn(nc, t_ys, t_xs)
     with pytest.raises(ValueError, match="CUDA"):
         mas.mas_backtrack(mas.pack_decisions(nc > 0), t_ys, t_xs, 4)
     with pytest.raises(ValueError):
-        mas.maximum_path(nc, m, impl="fallback")
+        mas.maximum_path(nc, m, use_pallas="fallback")
     assert mas.launch_counts == {"mas_fused": 0, "mas_fwd": 0, "mas_bwd": 0,
                                  "mas_path": 0}
 

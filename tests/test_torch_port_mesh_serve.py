@@ -62,7 +62,7 @@ def modules(tmp_path_factory):
     return {
         "single": _shrink(port.SynthesisModule(path, pth, device="cpu")),
         "mesh": _shrink(port.SynthesisModule(
-            path, pth, mesh=create_mesh(2, "cpu"), device="cpu")),
+            path, pth, mesh=create_mesh(2, device_type="cpu"), device="cpu")),
         "jax_mesh": _shrink(ref.SynthesisModule(
             path, checkpoint_path=pth, mesh=jax_create_mesh(2))),
     }
@@ -150,7 +150,7 @@ def test_shard_batch_splits_rows_evenly_over_the_mesh():
     None passing through; rows that do not split evenly raise."""
     batch = {"x": torch.arange(12).reshape(6, 2), "sid": None,
              "pair": (torch.arange(6), torch.ones(6, 3))}
-    parts = shard_batch(batch, create_mesh(3, "cpu"))
+    parts = shard_batch(batch, create_mesh(3, device_type="cpu"))
     assert len(parts) == 3
     for i, part in enumerate(parts):
         assert part["sid"] is None
@@ -158,4 +158,4 @@ def test_shard_batch_splits_rows_evenly_over_the_mesh():
         assert torch.equal(part["pair"][0], torch.arange(2 * i, 2 * i + 2))
         assert part["pair"][1].shape == (2, 3)
     with pytest.raises(ValueError, match="do not split"):
-        shard_batch(batch, create_mesh(4, "cpu"))
+        shard_batch(batch, create_mesh(4, device_type="cpu"))

@@ -247,9 +247,9 @@ def test_segments_match_jax():
     ours = tseg.slice_segments(cl(x), t(ids), 8)
     ref = jseg.slice_segments(jnp.asarray(x), jnp.asarray(ids), 8)
     assert_close(n(ours).transpose(0, 2, 1), ref, atol=0)
-    seg, ids_t = tseg.rand_slice_segments(cl(x), t(np.array([30, 20, 8])), 8,
-                                          generator=torch.Generator()
-                                          .manual_seed(0))
+    seg, ids_t = tseg.rand_slice_segments(cl(x), torch.Generator()
+                                          .manual_seed(0),
+                                          t(np.array([30, 20, 8])), 8)
     assert seg.shape == (3, 5, 8)
     assert np.all(n(ids_t) >= 0) and np.all(n(ids_t) <= [22, 12, 0])
 

@@ -195,6 +195,6 @@ def test_param_spec_is_jax_rule_in_torch_layout(axis):
                 for i, s in enumerate(spec):
                     if s is not None:
                         want = list(reversed(dims))[i]
-                assert param_spec(p.shape, axis, dims) == want, name
+                assert param_spec(p.shape, axis, dims=dims) == want, name
                 checked += isinstance(module, Conv1d)
     assert checked > 100

@@ -271,7 +271,7 @@ def test_discriminator_matches_flax(disc):
 def test_adamw_and_lr_schedule_match_leaf_adamw():
     tc = TrainConfig(steps_per_epoch=2, lr_decay=0.5)  # flagship betas/eps
     jtc = JTrainConfig(steps_per_epoch=2, lr_decay=0.5)
-    lr_ours = tstep.make_lr_schedule(tc)
+    lr_ours = tstep.make_lr_schedule(Config(model=None, data=None, train=tc))
     lr_ref = j_lr_schedule(JConfig(model=None, data=None, train=jtc))
     for s in range(9):
         assert rel_err(lr_ours(s), lr_ref(jnp.asarray(s))) <= 1e-6

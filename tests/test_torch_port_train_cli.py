@@ -300,7 +300,7 @@ def test_resume_snaps_the_step_and_the_optimizer_counts_to_the_epoch(
                   for s in optim.state.values()}
         assert counts == (set() if weights_only else {3})
         assert state.lr_offset == (3 if weights_only else 0)
-        sched = make_lr_schedule(config.train)
+        sched = make_lr_schedule(config)
         assert state.learning_rate() == sched(0 if weights_only else 3)
 
 
@@ -386,7 +386,7 @@ def test_prefetch_keeps_the_epoch_order(tmp_path, num_workers, depth):
         want = list(batcher.iter_epoch(epoch))
         got = list(device_prefetch(prefetch_epoch(batcher, epoch,
                                                   num_workers, depth),
-                                   torch.device("cpu")))
+                                   device=torch.device("cpu")))
         assert len(got) == len(want) == len(batcher) == 4
         for g, w in zip(got, want):
             assert sorted(g) == sorted(w)
