@@ -93,6 +93,16 @@ Phases, one JSON line each:
            timing signals, each on the card against the CPU (max-abs <=
            1e-4; ms); utils.profile_trace around one flagship infer must
            write a trace naming a CUDA kernel
+  bench    the measurement tools (python -m mb_istft_vits_torch.<tool>:
+           bench, bench_train, bench_batch, bench_stream,
+           bench_chunk_decode, bench_microbatch, bench_export, bench_mas,
+           profile_step, profile_infer, flops_analysis) as child processes
+           on the card at the flagship's widths, short repetitions; the
+           three batch-64 train tools one after another, beside the others
+           started together; checks each exit code 0, its JSON's device the
+           card, every device field finite and > 0, bench_train's mfu in
+           (0, 1.05]; each tool's MAS launches reported on its own, not
+           as the main path's
   serve    flagship config, seeded random weights: warmup() of the default
            (text, frame) bucket pairs; 8 requests of filelist lines whose
            token counts warmup did not run (per request tokens, buckets,
@@ -145,11 +155,14 @@ deterministic algorithms for the process. Every phase's line carries its
 wall seconds. Then one {"kernels": [...]} line (launch counts from the
 forward, train, train_sdp, train_ms, eval_ms, train_cli, train_data, ddp,
 tp and overfit run, the spawned ranks' own counts added, and serving,
-times, bounds;
+times, bounds; `launches_by_path` beside them: the main path's and each
+measurement tool's of the bench phase, not added to `launches`;
 `launches` counts the first
 kernel of a port and `launches_by_kernel` each of its kernels: mas_bwd is
 mas_bwd_kernel and mas_path_kernel), the card's name and power limit as
-nvidia-smi prints them, and last {"ok": true, "device": {...}}.
+nvidia-smi prints them, and last {"ok": true, "device": {...}}. Every
+device_busy_share a line carries (the union of the profiled device
+activity over the wall time, utils.timing.profile_call) must be <= 1.
 
 Any failed phase raises: the script exits non-zero and prints no result
 line. It needs no network, starts no process that outlives it, and
@@ -176,6 +189,13 @@ MS_CONFIG = os.path.join(REPO, "configs", "uudb_ms_istft_vits_ms.json")
 MS_FILELIST = os.path.join(REPO, "filelists",
                            "uudb_audio_sid_text_train_filelist.txt")
 ISTFT_CONFIG = os.path.join(REPO, "configs", "ljs_istft_vits.json")
+sys.path.insert(0, REPO)
+from mb_istft_vits_torch.bench_mas import bounds_ms  # noqa: E402
+from mb_istft_vits_torch.utils.timing import (  # noqa: E402
+    kernel_time_ms,
+    profile_call,
+    time_ms,
+)
 SOURCE = "mb_istft_vits_torch/csrc/mas.cu"
 REPLACES = {
     "mas_fused": "mb_istft_vits_tpu/ops/mas_pallas.py:56",
@@ -207,102 +227,36 @@ TRAIN_STEPS = 6  # timed train steps after the first
 TRAIN_MS_STEPS = 4  # the same, of the multi-speaker model
 TRAIN_SDP_STEPS = 3  # the same, of the flagship with the stochastic predictor
 SDP_REQUESTS = 4  # serve_sdp's requests at noise_scale_w 0.8
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 outside the
-# tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-REPS = 10
 
 
 _phase_start = [time.perf_counter()]
 
 
+def _busy_shares(tree):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == "device_busy_share" and v is not None:
+                yield v
+            else:
+                yield from _busy_shares(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _busy_shares(v)
+
+
 def emit(phase: str, **fields) -> None:
-    """One phase's JSON line, with its wall seconds (from `run_phase`)."""
+    """One phase's JSON line, with its wall seconds (from `run_phase`);
+    raises if a busy share in it exceeds 1."""
     print(json.dumps({"phase": phase, **fields, "wall_seconds":
                       time.perf_counter() - _phase_start[0]}), flush=True)
+    over = [v for v in _busy_shares(fields) if v > 1.0]
+    if over:
+        raise AssertionError(f"{phase}: device busy shares above 1: {over}")
 
 
 def run_phase(fn, *args):
     _phase_start[0] = time.perf_counter()
     return fn(*args)
-
-
-def time_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
-    """Median CUDA-event time of one call, after warm-up."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def kernel_time_ms(fn, reps: int = 2 * REPS, bursts: int = 3) -> float:
-    """Device time of one call of fn, the wrapper's host work (allocation,
-    checks, the ctypes call) left out: the stream first sleeps, so the host
-    queues `reps` calls before the first one runs and the card runs them
-    back to back; CUDA events time the burst. Median over `bursts`."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(bursts):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)  # ~50 ms: longer than queueing reps
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
-
-
-def band_cells(t_ys, t_xs) -> int:
-    """DP cells inside every item's band: the cells of neg_cent the DP
-    needs, max(0, t_x + y - t_y) <= x < min(t_x, y + 1) for y < t_y."""
-    total = 0
-    for t_y, t_x in zip(t_ys, t_xs):
-        for y in range(t_y):
-            total += max(0, min(t_x, y + 1) - max(0, t_x + y - t_y))
-    return total
-
-
-def bounds_ms(b, t_y_max, t_x_max, t_ys, t_xs):
-    """Least time for each kernel's work: bytes each input is read once
-    and each output written once (data-dependent parts counted for these
-    lengths) over HBM bandwidth, vs ~4 float ops per band cell over the
-    float32 peak. Returns {kernel: (bound_ms, bound_by)}."""
-    cells = band_cells(t_ys, t_xs)
-    words = (t_x_max + 31) // 32
-    path_bytes = 4 * b * t_y_max * t_x_max
-    len_bytes = 8 * b
-    by_kernel = {
-        "mas_fused": 4 * cells + path_bytes + len_bytes,
-        "mas_fwd": 4 * cells + 4 * words * sum(t_ys) + len_bytes,
-        # the backtrack needs one decision word per emitted row
-        "mas_bwd": 4 * sum(t_ys) + path_bytes + len_bytes,
-    }
-    ops = {"mas_fused": 4 * cells, "mas_fwd": 4 * cells, "mas_bwd": 0}
-    out = {}
-    for name, nbytes in by_kernel.items():
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops[name] / FP32_OPS_PER_S * 1e3
-        out[name] = ((t_bytes, "bytes") if t_bytes >= t_ops
-                     else (t_ops, "operations"))
-    return out
 
 
 def ragged_problem(shape, seed):
@@ -529,40 +483,6 @@ def mas_bwd_scan():
 def _texts(n: int):
     with open(FILELIST, encoding="utf-8") as f:
         return [line.rstrip("\n").split("|")[-1] for line in f][:n]
-
-
-def profile_call(fn):
-    """fn() under torch.profiler: wall time, summed device time (busy share
-    of the wall), top device kernels and top host ops. fn must end in a
-    device sync."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    # device rows are the kernels, copies and memsets themselves; an op's
-    # own row repeats its kernels' time, so only these are summed
-    dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
-           if e.device_type == DeviceType.CUDA]
-    host = [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in events
-            if e.device_type == DeviceType.CPU]
-    device_ms = sum(d[1] for d in dev)
-
-    def top(rows):
-        return [{"name": k[:80], "ms": ms, "calls": c}
-                for k, ms, c in sorted(rows, key=lambda r: -r[1])[:6]]
-
-    return {"wall_ms_profiled": wall_ms, "device_ms": device_ms,
-            "device_busy_share": device_ms / wall_ms if dev else None,
-            "cuda_launch_kernel_calls": sum(
-                c for k, _, c in host if k.startswith("cudaLaunchKernel")),
-            "mas_device_ms": sum(ms for k, ms, _ in dev
-                                 if re.search(r"\bmas_\w+_kernel", k)),
-            "top_device": top(dev), "top_host": top(host)}
 
 
 def phase_serve():
@@ -1297,6 +1217,7 @@ def train_report(run, batch, config):
         split_last_step=run["split"], peak_memory_bytes=run["peak"],
         steps=[run["first"]] + run["steps"], profile=profile,
         device_busy_share=profile["device_busy_share"],
+        device_overlap_ms=profile["device_overlap_ms"],
         mas_device_share=(profile["mas_device_ms"] / profile["device_ms"]
                           if profile["device_ms"] else None))
 
@@ -1915,16 +1836,17 @@ def phase_train_data(root):
          first_nonfinite=_first_nonfinite(feeds),
          host_spec_vs_card=spec_gaps, peak_memory_bytes=peak,
          profile=profile, device_busy_share=profile["device_busy_share"],
-         checks=checks)
+         device_overlap_ms=profile["device_overlap_ms"], checks=checks)
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"train_data checks failed: {failed}")
     return cfg_path, model_dir
 
 
-def _tool(*args, cwd):
-    """A port CLI in a child process; (Popen, its output file)."""
-    env = dict(os.environ)
+def _tool(*args, cwd, env=None):
+    """A port CLI in a child process, `env` added to this one's; (Popen,
+    its output file)."""
+    env = {**os.environ, **(env or {})}
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     out = tempfile.TemporaryFile(mode="w+")
     proc = subprocess.Popen([sys.executable, "-m",
@@ -2738,6 +2660,111 @@ def phase_surface():
         raise AssertionError(f"surface checks failed: {failed}")
 
 
+# the measurement tools at the flagship's widths, short repetitions: the
+# batch-64 train tools one after another (each holds a batch-64 step's
+# memory), the others started together beside them
+BENCH_TRAIN_TOOLS = {
+    "bench_train": ["--batch", "64", "--steps", "3", "--device-spec",
+                    "--feed-host", "--flops"],
+    "profile_step": ["--batch", "64", "--steps", "2", "--top-k", "12"],
+    "flops_analysis": ["--batch", "64"],
+}
+BENCH_TOOLS = {
+    "bench_mas": ["--n", "5", "--reps", "3"],
+    "bench": ["--runs", "5", "--calls", "5"],
+    "bench_batch": ["--reps", "2"],
+    "bench_stream": ["--reps", "2"],
+    "bench_chunk_decode": ["--reps", "2"],
+    "bench_microbatch": ["--rounds", "3", "--floor"],
+    "bench_export": ["--reps", "3"],
+    "profile_infer": [],
+}
+MFU_RANGE = (0.0, 1.05)
+BENCH_LAUNCHES = {}  # tool -> its MAS launches in the bench phase
+
+
+def _tool_record(text):
+    """The last JSON object line of a tool's output, or None."""
+    for line in reversed(text.splitlines()):
+        if line.startswith("{"):
+            try:
+                return json.loads(line)
+            except json.JSONDecodeError:
+                continue
+    return None
+
+
+def phase_bench(root):
+    """Each measurement tool as a user runs it, a child process on the card
+    (two torch threads each): exit code 0, its JSON's device the card,
+    every device field of the tool (its DEVICE_FIELDS) finite and > 0,
+    bench_train's mfu in (0, 1.05], MAS launched by each train tool's step
+    and every MAS kernel by bench_mas. Each tool's MAS launches are kept
+    apart from the main path's (BENCH_LAUNCHES): bench_mas times the
+    forced routes in bursts."""
+    import importlib
+
+    import torch
+
+    from mb_istft_vits_torch.utils.timing import field_values
+
+    work = os.path.join(root, "bench")
+    os.makedirs(work)
+    env = {"OMP_NUM_THREADS": "2"}
+    args = {**BENCH_TRAIN_TOOLS, **BENCH_TOOLS}
+    args["profile_step"] = [*args["profile_step"], "--logdir",
+                            os.path.join(work, "prof")]
+    t0 = time.perf_counter()
+    results, running = {}, {}
+    try:
+        for name in BENCH_TOOLS:
+            running[name] = _tool(name, *args[name], cwd=work, env=env)
+        for name in BENCH_TRAIN_TOOLS:
+            results[name] = _finish(*_tool(name, *args[name], cwd=work,
+                                           env=env))
+        for name in list(running):
+            results[name] = _finish(*running.pop(name))
+    finally:  # no child outlives a failure here
+        for proc, out in running.values():
+            _finish(proc, out, timeout=0)
+    seconds = time.perf_counter() - t0
+    records = {name: _tool_record(text) for name, (_, text) in results.items()}
+    kind = torch.cuda.get_device_name(0)
+    device_fields, checks = {}, {}
+    for name, rec in records.items():
+        ok = results[name][0] == 0 and rec is not None
+        if ok:
+            fields = importlib.import_module(
+                f"mb_istft_vits_torch.{name}").DEVICE_FIELDS
+            values = [v for f in fields for v in field_values(rec, f)]
+            device_fields[name] = values
+            ok = (rec["device"]["platform"] == "gpu"
+                  and rec["device"]["kind"] == kind
+                  and all(isinstance(v, (int, float)) and math.isfinite(v)
+                          and v > 0 for v in values))
+            BENCH_LAUNCHES[name] = rec["mas_launches"]
+        checks[f"{name}_ok"] = ok
+    mfu = (records.get("bench_train") or {}).get("mfu")
+    checks["mfu_in_range"] = (mfu is not None
+                              and MFU_RANGE[0] < mfu <= MFU_RANGE[1])
+    # a train step launches the fused kernel or the pair; bench_mas each
+    checks["step_tools_launched_mas"] = all(
+        BENCH_LAUNCHES.get(t, {}).get("mas_fused", 0)
+        + BENCH_LAUNCHES.get(t, {}).get("mas_fwd", 0) > 0
+        for t in BENCH_TRAIN_TOOLS)
+    checks["bench_mas_launched_every_kernel"] = all(
+        v > 0 for v in BENCH_LAUNCHES.get("bench_mas", {"none": 0}).values())
+    emit("bench", seconds=seconds, records=records,
+         mas_launches_by_tool=BENCH_LAUNCHES,
+         exit_codes={k: rc for k, (rc, _) in results.items()},
+         tails={k: text[-600:] for k, (rc, text) in results.items()
+                if rc != 0 or records[k] is None},
+         checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"bench checks failed: {failed}")
+
+
 def phase_serve_mesh():
     """The serving mesh: `SynthesisModule(mesh=[cuda:0, cuda:0])` (two mesh
     positions on the one card, sharing its replica) against the
@@ -2977,7 +3004,6 @@ def phase_export(smi):
 
 def main() -> int:
     smi = run_phase(phase_device)
-    sys.path.insert(0, REPO)
     import torch
 
     from mb_istft_vits_torch.device import disable_tf32
@@ -3009,6 +3035,7 @@ def main() -> int:
         run_phase(phase_tp)
         run_phase(phase_overfit)
         run_phase(phase_surface)
+        run_phase(phase_bench, root)
         # last: the serving modules pin cuDNN's deterministic algorithms
         # for the rest of the process
         run_phase(phase_serve)
@@ -3037,6 +3064,9 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches[name],
             "launches_by_kernel": {f"{k}_kernel": launches[k]
                                    for k in KERNELS_OF[name]},
+            "launches_by_path": {"main": launches[name], **{
+                f"bench.{tool}": counts.get(name, 0)
+                for tool, counts in BENCH_LAUNCHES.items()}},
             "shape": row["shape"], "bit_exact": all(
                 [row["bit_exact"]] + [c["bit_exact"] for c in shapes]),
             "max_abs_err": max([row["max_abs_err"]]

@@ -1,0 +1,264 @@
+"""Training-step throughput of the flagship on one card, synthetic batch
+(the JAX package's `scripts/bench_train.py`): the first step, the D and
+G halves, the step synced every time and queued, optionally fed from the
+host and double-buffered, audio-seconds trained a second, and with
+`--flops` the counted FLOPs a step, the achieved rate and `mfu`. Prints
+ONE JSON line.
+
+    python -m mb_istft_vits_torch.bench_train [--batch 64] [--steps 10] \
+        [--bf16] [--feed-host] [--device-spec] [--widen N] [--flops] \
+        [--device cpu]
+
+`step_ms` is the card's time a step: CUDA events before the first and
+after the last of `--steps` queued steps (one sync at the end, as
+training runs), over the steps; `step_ms_host` is the same run on the
+host clock, and `steps_per_s` and `audio_s_per_s` are read from it, the
+rate a training run gets. `step_ms_sync` (synced each step) and the
+feed's step times are host-clock means too. The halves are CUDA events
+around `train/step.py`'s `d_step` and `g_step` and around the batch
+prep and generator forward before them (`forward_ms`), medians over
+`--steps` steps. `--flops` counts one step with `torch.utils.flop_counter`
+(`utils.timing.count`, on the card): `mfu` is the counted FLOPs over
+`step_ms`, divided by the peak of the step's precision (`peak_for`:
+float32 with TF32 off, as the trainer runs, or bf16 with `--bf16`). On
+the CPU every device time, `achieved_tflops` and `mfu` is null.
+`--no-donate` (XLA's buffer donation) is accepted and unused.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import sys
+import time
+from unittest import mock
+
+import numpy as np
+import torch
+
+from mb_istft_vits_torch.bench import CONFIG
+from mb_istft_vits_torch.utils import timing
+
+DEVICE_FIELDS = ("forward_ms", "d_step_ms", "g_step_ms", "step_ms",
+                 "achieved_tflops", "mfu")
+WIDENED = ("inter_channels", "hidden_channels", "filter_channels",
+           "upsample_initial_channel")
+
+
+def load_config(path: str, batch: int = 0, bf16: bool = False,
+                widen: int = 1):
+    """The config at `path` with the JAX scripts' overrides: batch size
+    (0 keeps the config's), bf16 (`fp16_run`), channel widths x `widen`."""
+    from mb_istft_vits_torch.config import Config
+
+    cfg = Config.from_json(path)
+    if bf16:
+        object.__setattr__(cfg.train, "fp16_run", True)
+    if batch:
+        object.__setattr__(cfg.train, "batch_size", batch)
+    for f in WIDENED if widen > 1 else ():
+        object.__setattr__(cfg.model, f, getattr(cfg.model, f) * widen)
+    return cfg
+
+
+def synthetic_batch(cfg, b: int, t_spec: int, t_x: int,
+                    device_spec: bool) -> dict:
+    """JAX's batch of numpy arrays, from RandomState(0), every row full
+    length: random ids, a random spectrogram [B, T_spec, bins] and float
+    audio of t_spec hops; `device_spec`: int16 audio with the STFT's tail
+    and no spectrogram (the trainer computes it on the card)."""
+    d = cfg.data
+    rng = np.random.RandomState(0)
+    batch = {
+        "x": rng.randint(1, cfg.model.n_vocab, size=(b, t_x)).astype(np.int32),
+        "x_lengths": np.full(b, t_x, np.int32),
+        "spec": (rng.randn(b, t_spec, d.filter_length // 2 + 1) ** 2
+                 ).astype(np.float32),
+        "spec_lengths": np.full(b, t_spec, np.int32),
+        "wav": rng.uniform(-0.5, 0.5, (b, t_spec * d.hop_length, 1)
+                           ).astype(np.float32),
+        "wav_lengths": np.full(b, t_spec * d.hop_length, np.int32),
+    }
+    if device_spec:
+        del batch["spec"]
+        t_wav = t_spec * d.hop_length + d.filter_length - d.hop_length
+        batch["wav"] = rng.randint(-16384, 16384, (b, t_wav, 1)
+                                   ).astype(np.int16)
+    return batch
+
+
+def to_device(batch: dict, device) -> dict:
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def step_precision(cfg, device) -> tuple:
+    """(name, peak ops/s) of the precision the step computes in."""
+    dtype = torch.bfloat16 if cfg.train.fp16_run else torch.float32
+    return timing.peak_for(dtype, device.type == "cuda"
+                           and timing.tf32_enabled())
+
+
+def split_ms(state, batch, steps: int) -> dict:
+    """Median CUDA-event ms of the batch prep and generator forward, the D
+    step and the G step over `steps` train steps."""
+    from mb_istft_vits_torch.train import step as tstep
+
+    marks = []
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            marks.append((start, end))
+            return out
+        return run
+
+    rows = []
+    with mock.patch.object(tstep, "d_step", timed(tstep.d_step)), \
+            mock.patch.object(tstep, "g_step", timed(tstep.g_step)):
+        for _ in range(steps):
+            marks.clear()
+            begin = torch.cuda.Event(enable_timing=True)
+            begin.record()
+            tstep.train_step(state, batch)
+            torch.cuda.synchronize()
+            (d0, d1), (g0, g1) = marks
+            rows.append((begin.elapsed_time(d0), d0.elapsed_time(d1),
+                         g0.elapsed_time(g1)))
+    return {k: statistics.median(v) for k, v in
+            zip(("forward_ms", "d_step_ms", "g_step_ms"), zip(*rows))}
+
+
+def timed_steps(state, batches, device) -> tuple:
+    """(mean host ms, mean device ms or None on the CPU) a step over
+    `batches` (each one step), queued with one device sync at the end;
+    CUDA events before the first step and after the last."""
+    from mb_istft_vits_torch.train.step import train_step
+
+    on_card = torch.device(device).type == "cuda"
+    timing.sync(device)
+    if on_card:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    n = 0
+    for batch in batches:
+        metrics = train_step(state, batch)
+        n += 1
+    if on_card:
+        end.record()
+    float(metrics["loss/g/total"])
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    return host_ms, start.elapsed_time(end) / n if on_card else None
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--config", default=CONFIG)
+    p.add_argument("--batch", type=int, default=0,
+                   help="override batch size (0 = config)")
+    p.add_argument("--spec-frames", type=int, default=400)
+    p.add_argument("--text-len", type=int, default=192)
+    p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--no-donate", action="store_true",
+                   help="accepted for the JAX script's callers; unused")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 mixed-precision compute (fp16_run)")
+    p.add_argument("--feed-host", action="store_true",
+                   help="also time steps fed a host batch every step, in "
+                        "line and double-buffered (data.device_prefetch)")
+    p.add_argument("--device-spec", action="store_true",
+                   help="int16 audio only, the spectrogram computed in "
+                        "the step (the trainer's default feed)")
+    p.add_argument("--widen", type=int, default=1,
+                   help="multiply the model's channel widths by N")
+    p.add_argument("--flops", action="store_true",
+                   help="count one step's FLOPs; report the achieved rate "
+                        "and mfu against the peak of the step's precision")
+    timing.add_device_argument(p)
+    return p
+
+
+def main(argv=None) -> int:
+    from mb_istft_vits_torch.data.prefetch import device_prefetch
+    from mb_istft_vits_torch.train.step import (create_train_state,
+                                                train_step)
+
+    args = build_parser().parse_args(argv)
+    device = timing.tool_device(args.device)
+    on_card = device.type == "cuda"
+    cfg = load_config(args.config, args.batch, args.bf16, args.widen)
+    b, d = cfg.train.batch_size, cfg.data
+    host = synthetic_batch(cfg, b, args.spec_frames, args.text_len,
+                           args.device_spec)
+    batch = to_device(host, device)
+    state = create_train_state(cfg, device, seed=0)
+
+    t0 = time.perf_counter()
+    metrics = train_step(state, batch)
+    loss_g = float(metrics["loss/g/total"])
+    out = {"metric": "train_step", "first_step_s": time.perf_counter() - t0,
+           "first_loss_g": loss_g, "batch": b,
+           "spec_frames": args.spec_frames, "text_len": args.text_len,
+           "widen": args.widen, "bf16": bool(cfg.train.fp16_run),
+           "peak_memory_bytes": None,
+           "device_spec": args.device_spec, "devices": 1, "steps": args.steps}
+    out.update(split_ms(state, batch, args.steps) if on_card else
+               dict.fromkeys(("forward_ms", "d_step_ms", "g_step_ms")))
+
+    # synced every step: adds the host's wait for each step's end
+    timing.sync(device)
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        metrics = train_step(state, batch)
+        float(metrics["loss/g/total"])
+    out["step_ms_sync"] = (time.perf_counter() - t0) / args.steps * 1e3
+    # queued: one sync at the end, as training runs
+    host_ms, dev_ms = timed_steps(state, [batch] * args.steps, device)
+    out.update(step_ms=dev_ms, step_ms_host=host_ms,
+               steps_per_s=1e3 / host_ms)
+
+    if args.flops:
+        counted = timing.count(lambda: train_step(state, batch))
+        precision, peak = step_precision(cfg, device)
+        achieved = None if dev_ms is None else counted["flops"] / (
+            dev_ms / 1e3)
+        out.update(flops_per_step=counted["flops"],
+                   bytes_per_step=counted["bytes"], peak=precision,
+                   peak_tflops=peak / 1e12,
+                   achieved_tflops=None if achieved is None
+                   else achieved / 1e12,
+                   mfu=None if achieved is None else achieved / peak)
+
+    if args.feed_host:
+        nbytes = sum(a.nbytes for a in host.values())
+        out["step_ms_host_fed"] = timed_steps(
+            state, (to_device(host, device) for _ in range(args.steps)),
+            device)[0]
+        out["step_ms_double_buffered"] = timed_steps(
+            state, device_prefetch((dict(host) for _ in range(args.steps)),
+                                   device=device), device)[0]
+        out.update(feed_mb_per_step=nbytes / 1e6,
+                   feed_gb_per_s=nbytes / out["step_ms_host_fed"] / 1e6)
+
+    metrics = train_step(state, batch)
+    if on_card:
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+    out["audio_s_per_s"] = (b * args.spec_frames * d.hop_length
+                            / d.sampling_rate / (host_ms / 1e3))
+    for k in ("loss/g/total", "loss/d/total", "grad_norm_g"):
+        out[k] = float(metrics[k])
+    out["all_finite"] = all(np.isfinite(out[k]) for k in
+                            ("loss/g/total", "loss/d/total", "grad_norm_g"))
+    timing.emit(out, device)
+    if not out["all_finite"]:
+        raise AssertionError("train step metrics are not finite")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -77,7 +77,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(imported):
                  "parallel.dryrun", "infer.export", "export_serving",
                  "dsp", "dsp.pqmf", "dsp.stft", "dsp.mel", "overfit_check",
                  "make_tiny_dataset", "make_filelists", "analyze_phase",
-                 "tb_extract"):
+                 "tb_extract", "utils.timing", "bench", "bench_train",
+                 "bench_batch", "bench_stream", "bench_chunk_decode",
+                 "bench_microbatch", "bench_export", "bench_mas",
+                 "profile_step", "profile_infer", "flops_analysis"):
         assert f"mb_istft_vits_torch.{name}" in out["modules"]
 
 
