@@ -114,6 +114,20 @@ Phases, one JSON line each:
            > 0.98 with the whole decode); the micro-batcher with 8
            concurrent callers (rows bit-equal to synthesize_batch); the
            streaming engine for one utterance, twice
+  serve_graphs the serving programs as CUDA graphs (infer/graphs.py), for
+           the flagship in f32 and in bf16, the 12-speaker model with
+           speaker 5 and ljs_istft_vits.json: warmup() a pair at a time
+           (capture seconds and graphs per pair, the pool's bytes); per
+           warmup pair the infer and probe replays bit-equal to a direct
+           call of the same body on the same inputs, at the default knobs
+           and at others (no new capture); a seeded repeat bit-equal; a
+           new decode shape captured once; for the flagship in each dtype,
+           the headline sentence (mb_istft_vits_torch.bench's) and each
+           warmup pair on the graphs against the direct eager call of the
+           same bodies (today's launches): launches a request
+           (cudaLaunchKernel, cudaGraphLaunch, copies), dispatch, sync, e2e
+           RTF, the device busy union a call; mesh=[cuda:0, cuda:0]'s batch
+           of 16 against the single device's (atol 5e-4)
   export   the exported serving artifact (infer/export.py) of the flagship:
            two (text, frame) pairs traced on the card, loaded with
            load_serving; 4 filelist texts bit-equal to the live module at
@@ -151,9 +165,10 @@ Phases, one JSON line each:
            decode_chunks_batched and batched decode_spec_join of one latent,
            each within atol 5e-4 (JAX's mesh bar); ms of each
 The serving phases run last, as the serving module pins cuDNN's
-deterministic algorithms for the process. Every phase's line carries its
-wall seconds. Then one {"kernels": [...]} line (launch counts from the
-forward, train, train_sdp, train_ms, eval_ms, train_cli, train_data, ddp,
+deterministic algorithms for the process. Every serving call of their
+modules runs as a CUDA graph, captured at its first input signature.
+Every phase's line carries its wall seconds. Then one {"kernels": [...]}
+line (launch counts from the forward, train, train_sdp, train_ms, eval_ms, train_cli, train_data, ddp,
 tp and overfit run, the spawned ranks' own counts added, and serving,
 times, bounds; `launches_by_path` beside them: the main path's and each
 measurement tool's of the bench phase, not added to `launches`;
@@ -227,6 +242,9 @@ TRAIN_STEPS = 6  # timed train steps after the first
 TRAIN_MS_STEPS = 4  # the same, of the multi-speaker model
 TRAIN_SDP_STEPS = 3  # the same, of the flagship with the stochastic predictor
 SDP_REQUESTS = 4  # serve_sdp's requests at noise_scale_w 0.8
+GRAPH_REQUESTS = 10  # headline requests timed in each of graphs and eager
+KNOBS = (0.667, 1.0, 0.8)  # noise_scale, length_scale, noise_scale_w
+OTHER_KNOBS = (0.3, 1.2, 0.5)
 
 
 _phase_start = [time.perf_counter()]
@@ -911,9 +929,10 @@ def phase_serve_sdp(root):
     sm.warmup()
     warmup_s = time.perf_counter() - t0
 
+    # the module's probe and infer programs, observed from the host (the
+    # model's own methods run only while a graph is captured)
     seen = {"probe": [], "decode": []}
-    model = sm.model
-    predict, infer = model.predict_frames, model.infer
+    predict, infer = sm._predict_frames, sm._infer
 
     def probe(*args, **kwargs):
         out = predict(*args, **kwargs)
@@ -922,11 +941,10 @@ def phase_serve_sdp(root):
 
     def decode(*args, **kwargs):
         out = infer(*args, **kwargs)
-        seen["decode"].append((kwargs["max_frames"],
-                               [int(v) for v in out.y_lengths]))
+        seen["decode"].append((args[6], [int(v) for v in out[1]]))
         return out
 
-    model.predict_frames, model.infer = probe, decode
+    sm._predict_frames, sm._infer = probe, decode
     try:
         texts = _texts(SDP_REQUESTS)
         requests = []
@@ -947,7 +965,7 @@ def phase_serve_sdp(root):
                                  probe_frames=frames,
                                  decodes=len(seen["decode"])))
     finally:
-        del model.predict_frames, model.infer  # the class's methods again
+        del sm._predict_frames, sm._infer  # the class's methods again
 
     profile = profile_call(
         lambda: sm.synthesize(texts[1], noise_scale_w=0.8, seed=9))
@@ -2809,6 +2827,216 @@ def phase_serve_mesh():
         raise AssertionError(f"serve_mesh checks failed: {failed}")
 
 
+def _eager_request(sm, text, seed, bucket):
+    """A warm request as the serving module made it before its graphs:
+    the infer body called directly at `bucket` (one launch per kernel),
+    the same inputs and draws as `synthesize(text, seed=seed)`, then the
+    same fetch. -> (audio, timings)."""
+    import numpy as np
+    import torch
+
+    from mb_istft_vits_torch.infer import programs
+
+    t0 = time.perf_counter()
+    x, xl = sm._pad_ids_cached(sm.text_to_ids(text))
+    sid = sm._sid_rows(1, None)
+    gen, w_eps = sm._draws(x.shape, seed)
+    ns, ls, nsw = (sm._knob(v, sm.device) for v in KNOBS)
+    td = time.perf_counter()
+    with torch.no_grad():
+        pcm, y_lengths = programs.infer(
+            sm.model, x, xl, sid, ns, ls, nsw, sm._eps(gen, 1, bucket),
+            w_eps, max_frames=bucket)
+    pending = sm._fetch([pcm[0], y_lengths])
+    ts = time.perf_counter()
+    host = pending()
+    te = time.perf_counter()
+    audio = host[0].astype(np.float32)[: int(host[1][0]) * sm.hop_length]
+    audio = audio / 32767.0
+    return audio, {"dispatch": ts - td, "sync": te - ts, "total": te - t0,
+                   "rtf": (te - t0) / (audio.size / sm.sampling_rate)}
+
+
+def _launches(prof):
+    return {k: prof[k] for k in ("cuda_launch_kernel_calls",
+                                 "cuda_graph_launch_calls",
+                                 "cuda_memcpy_calls")}
+
+
+def _graph_numbers(sm, pairs, check):
+    """The flagship's headline sentence and each warmup pair on the graphs
+    against the direct eager call of the same bodies: launches a request,
+    dispatch, sync, e2e RTF, the device busy union a call."""
+    import numpy as np
+    import torch
+
+    from mb_istft_vits_torch.bench import TEXT
+    from mb_istft_vits_torch.infer import programs
+    from mb_istft_vits_torch.utils.timing import busy_ms
+
+    for _ in range(3):  # the frames-per-token ratio settles
+        sm.synthesize(TEXT, seed=0)
+    graph = [sm.synthesize(TEXT, seed=0) for _ in range(GRAPH_REQUESTS)]
+    bucket = graph[-1][1]["frame_bucket"]
+    eager = [_eager_request(sm, TEXT, 0, bucket)
+             for _ in range(GRAPH_REQUESTS)]
+    check("headline_graph_equals_eager_body", all(
+        np.array_equal(g[0], e[0]) for g, e in zip(graph, eager)))
+    calls = {"graphs": lambda: sm.synthesize(TEXT, seed=0),
+             "eager": lambda: _eager_request(sm, TEXT, 0, bucket)}
+    headline = {"frame_bucket": bucket,
+                "audio_seconds": graph[-1][1]["audio_seconds"]}
+    for mode, runs in (("graphs", graph), ("eager", eager)):
+        prof = profile_call(calls[mode])
+        busy = busy_ms(calls[mode], sm.device, calls=5)
+        headline[mode] = {
+            **{f"{k}_ms": statistics.median(t[k] for _, t in runs) * 1e3
+               for k in ("dispatch", "sync", "total")},
+            "e2e_rtf": statistics.median(t["rtf"] for _, t in runs),
+            "busy_ms": statistics.median(busy), "busy_ms_calls": busy,
+            "launches": _launches(prof),
+            "device_busy_share": prof["device_busy_share"]}
+    per_pair = []
+    sid = sm._sid_rows(1, 0)
+    for tb, fb in pairs:
+        x = sm._to_device(np.ones((1, tb), np.int64))
+        xl = sm._to_device(np.asarray([tb], np.int64))
+        eps = sm._eps(torch.Generator(sm.device).manual_seed(0), 1, fb)
+        knobs = [sm._knob(v, sm.device) for v in KNOBS]
+
+        def on_graphs():
+            pcm, _ = sm._infer(x, xl, sid, *KNOBS, fb, None, None, eps=eps)
+            sm._fetch([pcm[0]])()
+
+        def direct():
+            with torch.no_grad():
+                pcm, _ = programs.infer(sm.model, x, xl, sid, *knobs, eps,
+                                        None, max_frames=fb)
+            sm._fetch([pcm[0]])()
+
+        row = {"pair": [tb, fb]}
+        for mode, fn in (("graphs", on_graphs), ("eager", direct)):
+            prof = profile_call(fn)
+            busy = busy_ms(fn, sm.device, calls=3)
+            row[mode] = {"busy_ms": statistics.median(busy),
+                         "wall_ms": prof["wall_ms_profiled"],
+                         "launches": _launches(prof),
+                         "device_busy_share": prof["device_busy_share"]}
+        per_pair.append(row)
+    return {"headline": headline, "pairs": per_pair}
+
+
+def phase_serve_graphs(smi):
+    """The serving programs as CUDA graphs (infer/graphs.py): for each
+    model, warmup() a pair at a time, each pair's replays against direct
+    calls of the same bodies at two knob settings, a seeded repeat, a new
+    shape captured once; the flagship's numbers in f32 and bf16; the mesh
+    batch against the single device's."""
+    import numpy as np
+    import torch
+
+    from mb_istft_vits_torch.bench import TEXT
+    from mb_istft_vits_torch.infer import programs
+    from mb_istft_vits_torch.infer.synthesis import (
+        SynthesisModule,
+        _next_bucket,
+    )
+
+    checks = {}
+
+    def check(name, ok):
+        checks[name] = checks.get(name, True) and bool(ok)
+
+    models = {"flagship_f32": (CONFIG, torch.float32, None, TEXT),
+              "flagship_bf16": (CONFIG, torch.bfloat16, None, TEXT),
+              "ms_speaker_5": (MS_CONFIG, torch.float32, 5, ms_rows()[0][1]),
+              "istft": (ISTFT_CONFIG, torch.float32, None, TEXT)}
+    report = {}
+    for name, (config, dtype, speaker, text) in models.items():
+        sm = SynthesisModule(config, None, None, 0, dtype, device="cuda")
+        row = report[name] = {}
+        pairs = [(tb, _next_bucket(int(tb * sm._frames_per_token),
+                                   sm.FRAME_BUCKETS))
+                 for tb in sm.TEXT_BUCKETS]
+        row["warmup"] = []
+        for pair in pairs:
+            before, t0 = sm.graphs.captures, time.perf_counter()
+            sm.warmup([pair])
+            row["warmup"].append({"pair": list(pair),
+                                  "capture_s": time.perf_counter() - t0,
+                                  "graphs": sm.graphs.captures - before})
+        row["pool_bytes_after_warmup"] = sm.graphs.pool_bytes()
+        warm = sm.graphs.captures
+        check("warmup_captures_probe_and_infer_per_pair",
+              warm == len(pairs) + len({tb for tb, _ in pairs}))
+        sid = sm._sid_rows(1, speaker)
+        gen = torch.Generator().manual_seed(0)
+        for i, (tb, fb) in enumerate(pairs):
+            x = torch.randint(1, sm.cfg.n_vocab, (1, tb), generator=gen
+                              ).cuda()
+            xl = torch.tensor([tb - i - 1]).cuda()
+            for values in (KNOBS, OTHER_KNOBS):
+                eps = sm._eps(torch.Generator("cuda").manual_seed(i), 1, fb)
+                ns, ls, nsw = (sm._knob(v, sm.device) for v in values)
+                got = sm._infer(x, xl, sid, *values, fb, None, None, eps=eps)
+                frames = sm._predict_frames(x, xl, sid, values[1], values[2],
+                                            None)
+                with torch.no_grad():
+                    want = programs.infer(sm.model, x, xl, sid, ns, ls, nsw,
+                                          eps, None, max_frames=fb)
+                    want_frames = programs.probe(sm.model, x, xl, sid, ls,
+                                                 nsw, None)
+                check("replays_bit_equal_to_direct_calls",
+                      all(map(torch.equal, got, want))
+                      and torch.equal(frames, want_frames))
+        check("knob_change_replays_the_same_graph",
+              sm.graphs.captures == warm)
+        _fresh_bucket_state(sm)
+        first, t1 = sm.synthesize(text, speaker, seed=0)
+        _fresh_bucket_state(sm)
+        again, t2 = sm.synthesize(text, speaker, seed=0)
+        check("seeded_repeat_bit_equal",
+              t1["frame_bucket"] == t2["frame_bucket"]
+              and np.array_equal(first, again))
+        z = torch.randn((1, 100, sm.cfg.inter_channels), device="cuda",
+                        dtype=dtype)
+        before = sm.graphs.captures
+        outs = [sm._decode_pcm(z, speaker) for _ in range(2)]
+        with torch.no_grad():
+            direct = programs.decode_pcm(sm.model, z, sm._sid_rows(1,
+                                                                   speaker))
+        check("new_shape_captured_once", sm.graphs.captures == before + 1
+              and all(torch.equal(o, direct) for o in outs))
+        if name.startswith("flagship"):
+            row.update(_graph_numbers(sm, pairs, check))
+        row.update(graphs=len(sm.graphs), captures=sm.graphs.captures,
+                   replays=sm.graphs.replays,
+                   retry_captures=sm.retry_captures,
+                   pool_bytes=sm.graphs.pool_bytes())
+        del sm
+        torch.cuda.empty_cache()
+
+    single = SynthesisModule(CONFIG, seed=0, device="cuda")
+    mesh = SynthesisModule(CONFIG, seed=0, mesh=["cuda:0", "cuda:0"])
+    texts = _texts(SERVE_BATCH)
+    a, _ = single.synthesize_batch(texts, seed=7)
+    b, _ = mesh.synthesize_batch(texts, seed=7)
+    mesh_err = (max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+                if len(a) == len(b) and all(x.shape == y.shape
+                                            for x, y in zip(a, b))
+                else float("inf"))
+    check("mesh_batch_within_5e-4_of_single", mesh_err <= 5e-4)
+    check("mesh_positions_share_one_infer_graph", len(
+        [k for k in mesh.graphs.keys() if k[0] == "infer"]) == 1)
+    emit("serve_graphs", nvidia_smi=smi, weights="random (seed 0)",
+         models=report, mesh={"max_abs_err": mesh_err,
+                              "bit_equal": mesh_err == 0.0},
+         checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"serve_graphs checks failed: {failed}")
+
+
 EXPORT_TEXTS = 4  # texts held bit for bit to the live module
 EXPORT_RTF_REQUESTS = 12  # requests timed in each of live and artifact
 
@@ -3039,6 +3267,7 @@ def main() -> int:
         # last: the serving modules pin cuDNN's deterministic algorithms
         # for the rest of the process
         run_phase(phase_serve)
+        run_phase(phase_serve_graphs, smi)
         run_phase(phase_export, smi)
         run_phase(phase_serve_ms)
         run_phase(phase_serve_istft)

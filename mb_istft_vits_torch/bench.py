@@ -73,7 +73,7 @@ def infer_call(module, text: str, bucket: int):
     def call():
         gen, w_eps = module._draws(x.shape, 0)
         return module._infer(x, x_lengths, None, *KNOBS, bucket, gen,
-                             w_eps)[1]
+                             w_eps)[0]
 
     return call
 

@@ -44,11 +44,7 @@ def short_floor(module, text: str, timings: dict, device) -> dict:
                      dtype=module.compute_dtype, device=device)
 
     def latents():
-        with torch.no_grad():
-            return module.model.infer_z_only(
-                x, xl, None, noise_scale=ns, length_scale=ls,
-                noise_scale_w=nsw, max_frames=bucket, w_eps=w_eps,
-                generator=gen)
+        return module._latents(x, xl, None, ns, ls, nsw, bucket, gen, w_eps)
 
     ms = {
         "probe_enc_dp_ms": timing.busy_median_ms(

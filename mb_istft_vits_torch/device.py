@@ -6,9 +6,11 @@ silent fallback from one to the other.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Dict, Optional, TypeVar, Union
 
 import torch
+
+T = TypeVar("T")
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -29,3 +31,24 @@ def disable_tf32() -> None:
     to against the JAX reference."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def device_constant(cache: Dict[tuple, T], key: tuple, like: torch.Tensor,
+                    make: Callable[[], T]) -> T:
+    """A constant of the computation (a window, filter taps) on like's
+    device: `make()` once per (key, device), kept in `cache`. A CUDA graph
+    capture must find it kept, as making it there would upload from the
+    host or leave it unwritten outside the graph; the serving programs run
+    eagerly before each capture. While `like` is traced (torch.export's
+    tensors are subclasses) it is made afresh and not kept, so the traced
+    program makes it itself."""
+    if type(like) is not torch.Tensor:
+        return make()
+    full = (*key, like.device)
+    hit = cache.get(full)
+    if hit is None:
+        if like.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"constant {full} was not made before this "
+                               "CUDA graph capture")
+        hit = cache[full] = make()
+    return hit

@@ -22,11 +22,13 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from mb_istft_vits_torch.device import device_constant
 
 _PRESETS = {
     # name: (zero_crossings, kaiser beta, rolloff)
@@ -126,17 +128,24 @@ def _phase_matrix(L: int, M: int, quality: str) -> Tuple[np.ndarray, int]:
     return W.astype(np.float32), s_min
 
 
+# (L, M, quality, device) -> the transposed phase matrix [width, L]
+_PHASE_MATRICES: Dict[tuple, torch.Tensor] = {}
+
+
 def resample_poly_torch(x: torch.Tensor, sr_in: int, sr_out: int,
                         quality: str = "fast") -> torch.Tensor:
     """Batched resample of ``x [B, T, C]`` from ``sr_in`` to ``sr_out`` on
     x's device, in f32: [B, ceil(T L / M), C]. The same sum as
     :func:`resample_poly` per channel, in polyphase form (module
-    docstring)."""
+    docstring); the taps are uploaded once per rate pair and device
+    (`device_constant`)."""
     if sr_in == sr_out:
         return x
     L, M = _rational(sr_in, sr_out)
     W_np, s_min = _phase_matrix(L, M, quality)
     width = W_np.shape[1]
+    W = device_constant(_PHASE_MATRICES, (L, M, quality), x,
+                        lambda: torch.from_numpy(W_np).to(x.device).t())
     B, T, C = x.shape
     n_out = _out_len(T, L, M)
     n_m = -(-n_out // L)  # window starts M m, m < n_m
@@ -144,8 +153,7 @@ def resample_poly_torch(x: torch.Tensor, sr_in: int, sr_out: int,
     pad_r = max(M * (n_m - 1) + width - pad_l - T, 0)
     xs = F.pad(x.float().transpose(1, 2), (pad_l, pad_r))  # [B, C, T']
     frames = xs.unfold(-1, width, M)[:, :, :n_m]  # [B, C, n_m, width]
-    W = torch.from_numpy(W_np).to(x.device)
-    y = torch.matmul(frames, W.t())  # [B, C, n_m, L]
+    y = torch.matmul(frames, W)  # [B, C, n_m, L]
     return y.reshape(B, C, n_m * L)[:, :, :n_out].transpose(1, 2)
 
 

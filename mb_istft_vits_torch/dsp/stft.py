@@ -1,5 +1,5 @@
 """STFT, magnitude spectrogram and inverse STFT (counterpart of
-`mb_istft_vits_tpu/dsp/stft.py`), on `torch.stft` / `torch.istft`.
+`mb_istft_vits_tpu/dsp/stft.py`), on `torch.stft` and torch.istft's ops.
 
   - `stft` / `stft_magnitude`: onesided STFT, periodic Hann window
     zero-padded to n_fft at the centre; center=True pads n_fft//2 a side
@@ -9,25 +9,34 @@
     `mel_processing.py:51-70`): constant-pad (n_fft - hop)/2 a side with
     zeros, then center=False. This fork of the reference pads with zeros,
     not by reflection.
-  - `istft`: the decoder heads' inverse (`TorchSTFT.inverse`, reference
-    `stft.py:197-202`) with center=True.
+  - `istft`, `istft_riq`, `overlap_add`: the decoder heads' inverse
+    (`TorchSTFT.inverse`, reference `stft.py:197-202`) with center=True,
+    from (magnitude, phase) or from frames-last (real | imag), and its
+    overlap-add. The one inverse of the port, in training and serving.
   - `hann_window` and `TorchSTFT`, the JAX package's stand-in for the
     reference's `TorchSTFT` (`transform` -> magnitude and phase,
     `inverse` -> [B, 1, T]).
 
-torch.istft divides by the window's overlap-add envelope and raises where
-the envelope vanishes inside the kept span; the JAX package divides by 1
-there instead (`dsp/stft.py:302-304`). For the decoder heads (periodic
-Hann, n_fft = 4 hops, center=True) the envelope has no zero in the kept
-span, so the two agree.
+The inverse is torch.istft's own sequence of ops (irfft over the bins,
+the window, the overlap-add as `unfold_backward`, the division by the
+window's overlap-add envelope), so it gives torch.istft's bits, without
+torch.istft's check of the envelope: that check reads the device from the
+host, which a CUDA graph capture does not allow. Where the envelope
+vanishes the signal is divided by 1, as the JAX package does
+(`dsp/stft.py:302-304`); torch.istft would raise. The window and the
+envelope are made once per (n_fft, hop, window, frames, device) and kept
+on the device; a capture must find them made (the serving programs run
+once eagerly before each capture).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from mb_istft_vits_torch.device import device_constant
 
 
 # numpy's pad modes (what `jnp.pad` takes in the JAX package) in
@@ -97,16 +106,74 @@ def spectrogram(y: torch.Tensor, n_fft: int, hop_length: int,
                           center=False)
 
 
+def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
+    """Overlap-add: frames [B, F, n_fft] -> [B, (F - 1) * hop + n_fft], each
+    frame added in at a multiple of `hop` (JAX `overlap_add`). The sum of
+    torch.istft: the gradient of `unfold`."""
+    b, f, n_fft = frames.shape
+    return torch.ops.aten.unfold_backward(
+        frames, [b, (f - 1) * hop + n_fft], 1, n_fft, hop)
+
+
+# (n_fft, hop, win_length, frames, device) -> (window [n_fft], envelope [T])
+_SYNTHESIS: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _synthesis_window(n_fft: int, hop_length: int, win_length: int,
+                      frames: int, like: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(window [n_fft], overlap-add envelope [(frames - 1) * hop + n_fft]
+    with 1 where it vanishes) on like's device, kept per shape and device
+    (`device_constant`)."""
+    def make():
+        win = padded_window(win_length, n_fft, like.device)
+        env = overlap_add(win.pow(2).expand(1, frames, n_fft),
+                          hop_length)[0]
+        return win, torch.where(env > torch.finfo(torch.float32).tiny, env,
+                                torch.ones_like(env))
+
+    return device_constant(_SYNTHESIS, (n_fft, hop_length, win_length,
+                                        frames), like, make)
+
+
+def _istft_frames(spec: torch.Tensor, n_fft: int, hop_length: int,
+                  win_length: int, center: bool) -> torch.Tensor:
+    """Frames-first onesided spectrum [B, F, n_bins] (complex64) ->
+    float32 [B, T]: irfft, window, overlap-add, envelope, trim."""
+    win, env = _synthesis_window(n_fft, hop_length, win_length,
+                                 spec.shape[1], spec)
+    frames = torch.fft.irfft(spec, n_fft, dim=-1) * win
+    sig = overlap_add(frames, hop_length) / env
+    if center:
+        p = n_fft // 2
+        sig = sig[:, p: sig.shape[1] - p]
+    return sig
+
+
+def istft_riq(riq: torch.Tensor, n_fft: int, hop_length: int,
+              win_length: int, center: bool = True) -> torch.Tensor:
+    """iSTFT of frames-last (real | imag) [B, F, 2 * n_bins] -> [B, T] in
+    riq's dtype (computed in float32), T = (F - 1) * hop_length for
+    center=True (JAX `istft_riq`)."""
+    n_bins = n_fft // 2 + 1
+    if riq.shape[-1] != 2 * n_bins:
+        raise ValueError(f"riq has {riq.shape[-1]} values a frame, not "
+                         f"2 * {n_bins} for n_fft {n_fft}")
+    r = riq.float()
+    spec = torch.complex(r[..., :n_bins], r[..., n_bins:])
+    return _istft_frames(spec, n_fft, hop_length, win_length,
+                         center).to(riq.dtype)
+
+
 def istft(magnitude: torch.Tensor, phase: torch.Tensor, n_fft: int,
           hop_length: int, win_length: int, center: bool = True
           ) -> torch.Tensor:
-    """iSTFT of magnitude * e^{i phase}: [B, n_bins, F] -> [B, T], with
-    T = (F - 1) * hop_length for center=True (JAX `istft` / `istft_riq`)."""
+    """iSTFT of magnitude * e^{i phase}: [B, n_bins, F] -> [B, T] in
+    magnitude's dtype (computed in float32), T = (F - 1) * hop_length for
+    center=True (JAX `istft`)."""
     spec = torch.polar(magnitude.float(), phase.float())
-    wav = torch.istft(spec, n_fft, hop_length, n_fft,
-                      window=padded_window(win_length, n_fft, spec.device),
-                      center=center)
-    return wav.to(magnitude.dtype)
+    return _istft_frames(spec.transpose(1, 2), n_fft, hop_length,
+                         win_length, center).to(magnitude.dtype)
 
 
 class TorchSTFT:

@@ -20,6 +20,9 @@ The weights are stored once. Every program takes them as its first input,
 a state dict, and the model it traced is not one of its submodules, so no
 `.pt2` keeps a copy of them; nor does it keep its example inputs.
 
+The programs are the live module's bodies (`infer.programs.probe` and
+`infer` at the default options: (int16 PCM, y_lengths), no resampling).
+
 The noise is an input: a `torch.Generator` cannot enter an exported
 program (the JAX package passes an rng key into its programs). The probe
 takes `w_eps` [1, TB, 2] (a model with the stochastic duration predictor;
@@ -34,7 +37,8 @@ artifact's own stream, in call order.
 program serves every value: 0-dim float32 tensors kept on the CPU whatever
 the device. An operand on the CPU that holds one value enters an op as a
 Python float does, so the program's arithmetic is the live module's in
-bfloat16 too (a 0-dim CUDA operand would be rounded to bfloat16 first).
+bfloat16 too (the live module's graphs take 0-dim CUDA knobs, which the
+model's arithmetic, `nn.layers.scale`, takes to the same bits).
 
 Devices: the manifest records the device the programs were traced on.
 `ExportedServing` loads onto CUDA unless the caller asks for the CPU and
@@ -58,11 +62,8 @@ import torch
 import torch.nn as nn
 
 from mb_istft_vits_torch.device import disable_tf32, resolve_device
-from mb_istft_vits_torch.infer.synthesis import (
-    SynthesisModule,
-    _next_bucket,
-    _pcm16,
-)
+from mb_istft_vits_torch.infer import programs
+from mb_istft_vits_torch.infer.synthesis import SynthesisModule, _next_bucket
 from mb_istft_vits_torch.text import frontend_ids
 
 _FORMAT = 1
@@ -93,21 +94,6 @@ class _Program(nn.Module):
     def forward(self, params: Dict[str, torch.Tensor], *args):
         return torch.func.functional_call(
             self.method, {f"model.{k}": v for k, v in params.items()}, args)
-
-
-def _probe(model, x, x_lengths, sid, length_scale, noise_scale_w, w_eps):
-    """-> predicted frames [1] (int32)."""
-    return model.predict_frames(x, x_lengths, sid, length_scale,
-                                noise_scale_w, w_eps=w_eps)
-
-
-def _infer(model, x, x_lengths, sid, noise_scale, length_scale,
-           noise_scale_w, eps, w_eps, max_frames):
-    """-> (int16 PCM [1, max_frames * hop], y_lengths [1]), a plain tuple
-    as the JAX package's infer program returns."""
-    out = model.infer(x, x_lengths, sid, noise_scale, length_scale,
-                      noise_scale_w, max_frames, eps=eps, w_eps=w_eps)
-    return _pcm16(out.o), out.y_lengths
 
 
 def _scalar(v: float) -> torch.Tensor:
@@ -162,12 +148,13 @@ def export_serving(
             w_eps = (torch.zeros((1, tb, 2), device=dev) if cfg.use_sdp
                      else None)
             if tb not in probes:
-                save(_probe, (x, xl, sid, _scalar(1.0), _scalar(0.8), w_eps),
+                save(programs.probe,
+                     (x, xl, sid, _scalar(1.0), _scalar(0.8), w_eps),
                      f"probe_t{tb}.pt2")
                 probes.add(tb)
             eps = torch.zeros((1, fb, cfg.inter_channels),
                               dtype=module.compute_dtype, device=dev)
-            save(functools.partial(_infer, max_frames=fb),
+            save(functools.partial(programs.infer, max_frames=fb),
                  (x, xl, sid, _scalar(0.667), _scalar(1.0), _scalar(0.8),
                   eps, w_eps), f"infer_t{tb}_f{fb}.pt2")
             exported.append([int(tb), int(fb)])

@@ -4,10 +4,20 @@ timings, batched, chunked, spectrogram-joined and streaming decode
 with its public surface: method names, arguments, returns and timings).
 
 Text lengths and output frames are padded to bucket sizes, as in the JAX
-package. There each (text bucket, frame bucket) pair is one compiled
-program; here the same buckets bound the set of shapes the card sees, so
-after `warmup()` a request meets no new shape and pays no per-shape
-set-up (cuDNN plans, cuFFT plans, allocator growth).
+package, where each program (the duration probe, infer, latents, decode
+to PCM, decode to spec, the spec tail) is compiled once per static shape.
+Here each is a body of `infer.programs` and, on a card, a CUDA graph
+captured on the first call at its input signature and replayed after
+that (`infer.graphs`: one graph per program, device, input shapes and
+dtypes, output rate), so a request is a few graph launches. `warmup()`
+captures the pairs it runs ahead of traffic. The knobs are 0-dim float32
+device tensors, kept per value (JAX's `_dev_scalar`), so one graph serves
+every knob value. The noise is drawn outside the graphs from the
+request's generator, in the eager order: `w_eps` first (with the
+stochastic duration predictor), then the prior's `eps` in the compute
+dtype. A decode that fills its bucket is retried at a larger one, which
+captures there (JAX compiles there too): `retry_captures` counts those.
+On the CPU the bodies run directly.
 
 Device traffic: inputs go up through pinned memory without blocking;
 audio comes back as int16 PCM (half the bytes of f32), quantized on the
@@ -46,14 +56,15 @@ device, and sliced by row, so a row's audio does not depend on the mesh,
 as in JAX, where the noise is one global draw that is then sharded.
 
 Not ported: Orbax checkpoints (the port reads reference `.pth` files).
-`aot_cache_dir` is accepted and unused: eager PyTorch compiles no
-executables to cache.
+`aot_cache_dir` is accepted and unused: a CUDA graph cannot be written to
+disk, so every process captures its own.
 """
 
 from __future__ import annotations
 
 import bisect
 import copy
+import functools
 import math
 import time
 from collections import OrderedDict
@@ -65,7 +76,8 @@ import torch
 
 from mb_istft_vits_torch.config import Config
 from mb_istft_vits_torch.device import disable_tf32, resolve_device
-from mb_istft_vits_torch.dsp.resample import resample_poly_torch
+from mb_istft_vits_torch.infer import programs
+from mb_istft_vits_torch.infer.graphs import GraphCache
 from mb_istft_vits_torch.models import Synthesizer
 from mb_istft_vits_torch.parallel.mesh import (
     mesh_devices,
@@ -102,12 +114,6 @@ def _next_bucket(n: int, buckets: Sequence[int], granule: int = 64) -> int:
     return -(-n // granule) * granule
 
 
-def _pcm16(o: torch.Tensor) -> torch.Tensor:
-    """Waveform [..., T, 1] -> int16 PCM [..., T], rounded on the device."""
-    pcm = torch.clamp(o[..., 0].float(), -1.0, 1.0)
-    return torch.round(pcm * 32767.0).to(torch.int16)
-
-
 class SynthesisModule:
     """Loads a config and generator weights (`params`, a state dict with
     the reference names; else a reference `G_*.pth`; else random weights
@@ -121,9 +127,12 @@ class SynthesisModule:
     the same card twice) keeps a replica of the generator on each and fans
     batches out over them; `device` then defaults to the mesh's first,
     which holds the noise generator. `aot_cache_dir`: accepted for JAX's
-    callers and not used (nothing is compiled ahead of time in eager
-    PyTorch; JAX itself ignores it where its cache is unusable or a mesh
-    is set)."""
+    callers and not used (a CUDA graph cannot be stored; JAX itself
+    ignores it where its cache is unusable or a mesh is set).
+
+    `graphs` is the module's `infer.graphs.GraphCache` (its captures,
+    replays and capture seconds); `retry_captures` the captures made by
+    decodes retried at a larger frame bucket."""
 
     TEXT_BUCKETS = (32, 64, 128, 192, 256, 384)
     FRAME_BUCKETS = (128, 192, 256, 384, 512, 768, 1024, 1536, 2048)
@@ -198,6 +207,11 @@ class SynthesisModule:
         # repeated texts skip the frontend and reuse their device inputs
         self._ids_cache: "OrderedDict" = OrderedDict()
         self._x_cache: "OrderedDict" = OrderedDict()
+        # the serving programs' graphs on a card; knob values as device
+        # scalars, per (value, device)
+        self.graphs = GraphCache()
+        self.retry_captures = 0
+        self._knobs: Dict[Tuple[float, torch.device], torch.Tensor] = {}
 
     # ------------------------------------------------------------------
     # host <-> device
@@ -293,50 +307,99 @@ class SynthesisModule:
                                 device=self.device)
 
     # ------------------------------------------------------------------
-    # model calls
+    # model calls: the serving programs
     # ------------------------------------------------------------------
+    def _program(self, name: str, *args, replica: int = 0, **options):
+        """The body `name` of `infer.programs` on mesh position `replica`'s
+        model: its CUDA graph at these inputs' signature and `options` on a
+        card, a direct call on the CPU."""
+        dev, model = self._replicas[replica]
+        body = functools.partial(getattr(programs, name), model, **options)
+        return self.graphs.run((name, tuple(sorted(options.items()))),
+                               body, args, dev)
+
+    def _knob(self, v, device: torch.device) -> torch.Tensor:
+        """A knob as a 0-dim float32 tensor on `device`, kept per value
+        (JAX `_dev_scalar`), so a request uploads nothing for it."""
+        key = (float(v), device)
+        hit = self._knobs.get(key)
+        if hit is None:
+            if len(self._knobs) > 256:
+                self._knobs.clear()
+            hit = self._knobs[key] = torch.tensor(
+                float(v), dtype=torch.float32, device=device)
+        return hit
+
+    def _knobs_on(self, replica: int, *values) -> List[torch.Tensor]:
+        dev = self._replicas[replica][0]
+        return [self._knob(v, dev) for v in values]
+
+    def _eps(self, gen: torch.Generator, rows: int, frames: int
+             ) -> torch.Tensor:
+        """The prior's noise [rows, frames, C] in the compute dtype, drawn
+        from `gen` as `Synthesizer.infer` draws it ([rows, C, frames])."""
+        return torch.randn((rows, self.cfg.inter_channels, frames),
+                           generator=gen, dtype=self.compute_dtype,
+                           device=self.device).transpose(1, 2)
+
     def _predict_frames(self, x, x_lengths, sid, length_scale,
-                        noise_scale_w, w_eps, model=None) -> torch.Tensor:
-        with torch.no_grad():
-            return (model or self.model).predict_frames(
-                x, x_lengths, sid, length_scale=length_scale,
-                noise_scale_w=noise_scale_w, w_eps=w_eps)
+                        noise_scale_w, w_eps, replica: int = 0
+                        ) -> torch.Tensor:
+        """The duration probe: predicted frames [B] (int32) on the
+        device."""
+        return self._program(
+            "probe", x, x_lengths, sid,
+            *self._knobs_on(replica, length_scale, noise_scale_w), w_eps,
+            replica=replica)
 
     def _infer(self, x, x_lengths, sid, noise_scale, length_scale,
                noise_scale_w, max_frames, generator, w_eps,
-               out_sr: Optional[int] = None, eps=None, model=None):
-        """sid: device ids [B] or None -> (InferOutput, int16 PCM
-        [B, T_wav(out_sr)] on the device)."""
-        with torch.no_grad():
-            out = (model or self.model).infer(
-                x, x_lengths, sid, noise_scale=noise_scale,
-                length_scale=length_scale, noise_scale_w=noise_scale_w,
-                max_frames=max_frames, eps=eps, w_eps=w_eps,
-                generator=generator)
-            o = out.o
-            if out_sr is not None and out_sr != self.sampling_rate:
-                o = resample_poly_torch(o, self.sampling_rate, out_sr)
-            return out, _pcm16(o)
+               out_sr: Optional[int] = None, eps=None, replica: int = 0,
+               want_z: bool = False):
+        """sid: device ids [B] or None -> (int16 PCM [B, T_wav(out_sr)],
+        y_lengths [B]) on the device, and z [B, max_frames, C] with
+        `want_z`. eps (the prior's noise) is drawn from `generator` when
+        not given."""
+        if eps is None:
+            eps = self._eps(generator, len(x), max_frames)
+        resample = (None if out_sr in (None, self.sampling_rate)
+                    else (self.sampling_rate, int(out_sr)))
+        return self._program(
+            "infer", x, x_lengths, sid,
+            *self._knobs_on(replica, noise_scale, length_scale,
+                            noise_scale_w), eps, w_eps,
+            replica=replica, max_frames=int(max_frames),
+            resample=resample, want_z=want_z)
+
+    def _latents(self, x, x_lengths, sid, noise_scale, length_scale,
+                 noise_scale_w, max_frames, generator, w_eps):
+        """-> (z [B, max_frames, C], y_lengths [B], frames per token
+        [B, T_x]) on the device, the prior's noise drawn from
+        `generator`."""
+        return self._program(
+            "latents", x, x_lengths, sid,
+            *self._knobs_on(0, noise_scale, length_scale, noise_scale_w),
+            self._eps(generator, len(x), max_frames), w_eps,
+            max_frames=int(max_frames))
 
     def _decode_pcm(self, z: torch.Tensor, sid: Optional[int] = None,
                     replica: int = 0) -> torch.Tensor:
         """z windows [N, T, C] of speaker `sid`, on the device of mesh
         position `replica` -> int16 PCM [N, T * hop] there."""
-        dev, model = self._replicas[replica]
-        with torch.no_grad():
-            return _pcm16(model.decode(z, self._sid_rows(len(z), sid,
-                                                         dev))[0])
+        dev = self._replicas[replica][0]
+        return self._program("decode_pcm", z,
+                             self._sid_rows(len(z), sid, dev),
+                             replica=replica)
 
     def _decode_spec(self, z: torch.Tensor, sid: Optional[int] = None,
                      replica: int = 0):
         """z windows [N, T, C] of speaker `sid`, on the device of mesh
         position `replica` -> (spec, phase) there, [N, F, s, bins]
         ([N, F, bins] for the iSTFT head)."""
-        dev, model = self._replicas[replica]
-        with torch.no_grad():
-            _, _, spec, phase = model.decode(z, self._sid_rows(len(z), sid,
-                                                               dev))
-            return spec, phase
+        dev = self._replicas[replica][0]
+        return self._program("decode_spec", z,
+                             self._sid_rows(len(z), sid, dev),
+                             replica=replica)
 
     # ------------------------------------------------------------------
     # text frontend
@@ -403,9 +466,11 @@ class SynthesisModule:
                ) -> None:
         """Run the duration probe and the decode once at each of
         ``pairs`` (text_bucket, frame_bucket) ahead of traffic, so live
-        requests at those shapes pay no per-shape set-up. The default
-        takes each text bucket with its expected frame bucket (tokens x
-        the adaptive frames-per-token ratio). Runs as speaker 0."""
+        requests at those shapes pay no per-shape set-up: on a card this
+        captures their graphs. The default takes each text bucket with its
+        expected frame bucket (tokens x the adaptive frames-per-token
+        ratio). Runs as speaker 0 (a model with speakers) at the default
+        knobs; a graph serves every knob value."""
         if pairs is None:
             pairs = [
                 (tb, _next_bucket(int(tb * self._frames_per_token),
@@ -419,7 +484,7 @@ class SynthesisModule:
             xl = self._to_device(np.asarray([tb], np.int64))
             gen, w_eps = self._draws(x.shape, 0)
             self._predict_frames(x, xl, sid, 1.0, 0.8, w_eps)
-            _, pcm = self._infer(x, xl, sid, 0.667, 1.0, 0.8, fb, gen, w_eps)
+            pcm, _ = self._infer(x, xl, sid, 0.667, 1.0, 0.8, fb, gen, w_eps)
         if pcm is not None:
             self._fetch([pcm[:, :1]])()  # sync: every shape has run
 
@@ -501,14 +566,18 @@ class SynthesisModule:
                                          noise_scale_w, w_eps)
         t_dispatch = 0.0
         t_sync = 0.0
+        retry = False
         while True:
             td = time.perf_counter()
-            out, pcm16 = self._infer(x, x_lengths, sid_arr, noise_scale,
-                                     length_scale, noise_scale_w, bucket,
-                                     gen, w_eps)
-            fetch = [pcm16[0], out.y_lengths]
+            captures = self.graphs.captures
+            pcm16, y_lengths, *z = self._infer(
+                x, x_lengths, sid_arr, noise_scale, length_scale,
+                noise_scale_w, bucket, gen, w_eps, want_z=want_z)
+            if retry:
+                self.retry_captures += self.graphs.captures - captures
+            fetch = [pcm16[0], y_lengths]
             if want_z:
-                fetch.append(out.latents[0][0])
+                fetch.append(z[0][0])
             pending = self._fetch(fetch)
             ts = time.perf_counter()
             t_dispatch += ts - td
@@ -518,6 +587,7 @@ class SynthesisModule:
             if y_len < bucket or bucket >= self.MAX_FRAMES:
                 break
             bucket = self._frame_bucket_capped(int(bucket * 3 / 2))
+            retry = True
             if seed is not None:  # the same draws again, at the new bucket
                 gen, w_eps = self._draws(x.shape, seed)
         # EMA toward 1.2x the observed ratio, floored at 1.1x so an
@@ -633,20 +703,23 @@ class SynthesisModule:
         gen, w_eps = self._draws(x.shape, seed)
         bucket = self._frames_bucket(x, x_lengths, sid_arr, length_scale,
                                      noise_scale_w, w_eps)
+        retry = False
         while True:
-            with torch.no_grad():
-                attn, _, y_lengths, (z, *_) = self.model.infer_z_only(
-                    x, x_lengths, sid_arr, noise_scale=noise_scale,
-                    length_scale=length_scale, noise_scale_w=noise_scale_w,
-                    max_frames=bucket, w_eps=w_eps, generator=gen)
+            captures = self.graphs.captures
+            z, y_lengths, w = self._latents(
+                x, x_lengths, sid_arr, noise_scale, length_scale,
+                noise_scale_w, bucket, gen, w_eps)
+            if retry:
+                self.retry_captures += self.graphs.captures - captures
             fetch = [z[0], y_lengths]
             if return_durations:
-                fetch.append(attn[0].sum(dim=0))
+                fetch.append(w[0])
             host = self._fetch(fetch)()
             y_len = int(host[1][0])
             if y_len < bucket or bucket >= self.MAX_FRAMES:
                 break
             bucket = self._frame_bucket_capped(int(bucket * 3 / 2))
+            retry = True
             if seed is not None:
                 gen, w_eps = self._draws(x.shape, seed)
         z = host[0][:y_len]
@@ -1029,10 +1102,9 @@ class SynthesisModule:
         phase_p = np.zeros(pad_shape, np.float32)
         spec_p[0, :f_total] = np.abs(cfull)
         phase_p[0, :f_total] = np.angle(cfull)
-        with torch.no_grad():
-            tail = self.model.decode_spec_tail(self._to_device(spec_p),
-                                               self._to_device(phase_p))
-        wav = self._fetch([tail[0, :, 0]])()[0]
+        tail = self._program("spec_tail", self._to_device(spec_p),
+                             self._to_device(phase_p))
+        wav = self._fetch([tail[0]])()[0]
         return wav[: t_total * self.hop_length].astype(np.float32)
 
     def infer_z_only(self, z: np.ndarray, sid: Optional[int] = None
@@ -1102,8 +1174,8 @@ class SynthesisModule:
             "w_eps": w_eps})
         frames = [self._predict_frames(p["x"], p["x_lengths"], p["sid"],
                                        length_scale, noise_scale_w,
-                                       p["w_eps"], model)
-                  for p, (_, model) in zip(parts, self._replicas)]
+                                       p["w_eps"], i)
+                  for i, p in enumerate(parts)]
         # capped like the single-request path: one out-of-distribution
         # row must not size the whole batch's decode without bound
         bucket = self._frame_bucket_capped(
@@ -1111,17 +1183,14 @@ class SynthesisModule:
         out_sr = (None if out_sample_rate in (None, self.sampling_rate)
                   else int(out_sample_rate))
         # the prior's noise after w_eps, as `Synthesizer.infer` draws it
-        eps = self._shard(torch.randn(
-            (nb, self.cfg.inter_channels, bucket), generator=gen,
-            dtype=self.compute_dtype, device=self.device).transpose(1, 2))
+        eps = self._shard(self._eps(gen, nb, bucket))
         fetch = []
-        for p, e, (_, model) in zip(parts, eps, self._replicas):
+        for i, (p, e) in enumerate(zip(parts, eps)):
             # every device's work is queued before the first copy back
-            out, pcm16 = self._infer(p["x"], p["x_lengths"], p["sid"],
-                                     noise_scale, length_scale,
-                                     noise_scale_w, bucket, gen, p["w_eps"],
-                                     out_sr, eps=e, model=model)
-            fetch += [pcm16, out.y_lengths]
+            fetch += self._infer(p["x"], p["x_lengths"], p["sid"],
+                                 noise_scale, length_scale, noise_scale_w,
+                                 bucket, gen, p["w_eps"], out_sr, eps=e,
+                                 replica=i)
         host = self._fetch(fetch)()
         pcm_host = np.concatenate(host[0::2])
         y_lens = np.concatenate(host[1::2])

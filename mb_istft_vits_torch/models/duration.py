@@ -22,6 +22,7 @@ from mb_istft_vits_torch.nn import (
     Log,
     flip_channels,
 )
+from mb_istft_vits_torch.nn.layers import scale
 
 _LOG_2PI = math.log(2 * math.pi)
 
@@ -147,7 +148,7 @@ class StochasticDurationPredictor(nn.Module):
         if not reverse:
             return self.nll(x, x_mask, w, g, noise_rng, noise=noise)
         x = self._text(x, x_mask, g)
-        z = self._noise(noise, x, noise_rng) * noise_scale
+        z = scale(self._noise(noise, x, noise_rng), noise_scale)
         for i in range(self.n_flows - 1, 0, -1):
             z = self.flows[1 + 2 * i](flip_channels(z), x_mask, x,
                                       reverse=True)

@@ -38,6 +38,7 @@ from mb_istft_vits_torch.models.duration import (
 )
 from mb_istft_vits_torch.models.encoders import PosteriorEncoder, TextEncoder
 from mb_istft_vits_torch.nn.flows import Flip, ResidualCouplingLayer
+from mb_istft_vits_torch.nn.layers import scale
 from mb_istft_vits_torch.ops import (
     generate_path,
     maximum_path,
@@ -332,7 +333,7 @@ class Synthesizer(nn.Module):
                               device=m_p.device)
         else:  # in the compute dtype, as JAX draws it in m_p's
             eps = _cl(eps).to(m_p.dtype)
-        z_p = m_p + eps * torch.exp(logs_p) * noise_scale
+        z_p = m_p + scale(eps * torch.exp(logs_p), noise_scale)
         z = self.flow(z_p, y_mask, g, reverse=True)
         return z, z_p, m_p, logs_p, attn, y_mask, y_lengths, g
 
@@ -364,9 +365,13 @@ class Synthesizer(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> InferOutput:
         """Text -> waveform. `max_frames` bounds the output frames as in the
-        JAX package; None sizes it to the longest predicted utterance.
+        JAX package; None sizes it to the longest predicted utterance (a
+        read of the device: the serving programs pass their bucket).
         `eps` [B, max_frames, C] is the prior noise, `w_eps` [B, T_x, 2]
-        the stochastic duration predictor's."""
+        the stochastic duration predictor's. The three knobs are Python
+        floats or 0-dim float32 tensors (the serving programs' device
+        scalars); both give the same bits in every compute dtype
+        (`nn.layers.scale`)."""
         z, z_p, m_p, logs_p, attn, y_mask, y_lengths, g = \
             self._infer_latents(x, x_lengths, sid, noise_scale, length_scale,
                                 noise_scale_w, max_frames, eps, w_eps,

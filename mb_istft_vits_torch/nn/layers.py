@@ -23,6 +23,17 @@ def leaky_relu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
     return F.leaky_relu(x, slope)
 
 
+def scale(x: torch.Tensor, k) -> torch.Tensor:
+    """x times a knob k, a Python float or a 0-dim float32 tensor (the
+    serving programs take their knobs as tensors on the device), computed
+    in float32 and rounded to x's dtype. That is what a Python float does
+    to a bf16 or f16 x; a 0-dim tensor on the card would be rounded to x's
+    dtype before the product, so `x * k` alone gives other bits there."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return (x.float() * k).to(x.dtype)
+    return x * k
+
+
 def get_padding(kernel_size: int, dilation: int = 1) -> int:
     """reference commons.py:14-15"""
     return (kernel_size * dilation - dilation) // 2

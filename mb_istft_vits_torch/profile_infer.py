@@ -58,14 +58,10 @@ def main(argv=None) -> int:
         return module._infer(x, xl, None, ns, ls, nsw, bucket, gen, w_eps)
 
     def latents():
-        with torch.no_grad():
-            return module.model.infer_z_only(
-                x, xl, None, noise_scale=ns, length_scale=ls,
-                noise_scale_w=nsw, max_frames=bucket, w_eps=w_eps,
-                generator=gen)
+        return module._latents(x, xl, None, ns, ls, nsw, bucket, gen, w_eps)
 
-    out, pcm16 = infer()
-    z = out.latents[0]
+    pcm16, _ = infer()
+    z = latents()[0]
     host = torch.empty(pcm16.shape, dtype=pcm16.dtype,
                        pin_memory=device.type == "cuda")
     ms = {"probe_ms": timing.busy_median_ms(probe, device),

@@ -249,8 +249,9 @@ def profile_call(fn) -> dict:
     """fn() under torch.profiler: wall time, device time as the sum of the
     device events' durations (`device_ms`) and as the union of their
     intervals (`device_busy_ms`; `device_busy_share` is it over the wall,
-    `device_overlap_ms` the sum less the union), launches, MAS device ms,
-    top device kernels and top host ops. fn must end in a device sync."""
+    `device_overlap_ms` the sum less the union), launches (of kernels, of
+    CUDA graphs, copies), MAS device ms, top device kernels and top host
+    ops. fn must end in a device sync."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -280,6 +281,10 @@ def profile_call(fn) -> dict:
     return {"wall_ms_profiled": wall_ms, **busy_fields(activity, wall_ms),
             "cuda_launch_kernel_calls": sum(
                 c for k, _, c in host if k.startswith("cudaLaunchKernel")),
+            "cuda_graph_launch_calls": sum(
+                c for k, _, c in host if k.startswith("cudaGraphLaunch")),
+            "cuda_memcpy_calls": sum(
+                c for k, _, c in host if k.startswith("cudaMemcpy")),
             "mas_device_ms": sum(ms for k, ms, _ in dev
                                  if re.search(r"\bmas_\w+_kernel", k)),
             "top_device": top(dev), "top_host": top(host)}
@@ -313,10 +318,12 @@ def calls_busy_ms(intervals: Sequence[Tuple[float, float, object, str]],
 def busy_ms(fn, device, calls: int = 5) -> Optional[List[float]]:
     """The card's own time of each of `calls` calls of fn: the union of
     the call's device activity intervals, which the host's dispatch does
-    not lengthen. One profile holds a first call, not reported, and the
-    timed ones, each in a record_function range and ended by a device
-    sync. Raises if the profiler saw no device activity in a timed call.
-    On the CPU fn runs once and the result is None."""
+    not lengthen. One profile holds a first and a last call, not
+    reported, and the timed ones between them, each in a record_function
+    range and ended by a device sync (the profiler has dropped the device
+    records of the last call of a profile of CUDA graph replays). Raises
+    if the profiler saw no device activity in a timed call. On the CPU fn
+    runs once and the result is None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -327,7 +334,7 @@ def busy_ms(fn, device, calls: int = 5) -> Optional[List[float]]:
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for i in range(calls + 1):
+        for i in range(calls + 2):
             with record_function(f"{CALL_MARK}{i}"):
                 fn()
                 torch.cuda.synchronize(device)
@@ -340,7 +347,7 @@ def busy_ms(fn, device, calls: int = 5) -> Optional[List[float]]:
         elif e.device_type == DeviceType.CUDA:
             intervals.append((e.time_range.start, e.time_range.end,
                               e.device_resource_id, e.name))
-    times = calls_busy_ms(intervals, sorted(starts.values()))[1:]
+    times = calls_busy_ms(intervals, sorted(starts.values()))[1:-1]
     if not all(times):
         raise RuntimeError(f"the profiler saw no device activity in a call "
                            f"of {fn}: {times}")

@@ -121,14 +121,16 @@ def test_sdp_seeded_request_on_the_card_repeats_with_the_probes_frames(
         modules, monkeypatch):
     m = modules["cuda"]
     probes = []
-    predict = m.model.predict_frames
+    # the module's probe program (a graph replay: the model's own method
+    # runs only while the graph is captured)
+    predict = m._predict_frames
 
     def recording(*args, **kwargs):
         out = predict(*args, **kwargs)
         probes.append(int(out[0]))
         return out
 
-    monkeypatch.setattr(m.model, "predict_frames", recording)
+    monkeypatch.setattr(m, "_predict_frames", recording)
     runs = [_fresh(m).synthesize(TEXT, noise_scale_w=0.8, seed=3)
             for _ in range(2)]
     (a1, t1), (a2, t2) = runs

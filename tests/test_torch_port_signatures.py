@@ -47,11 +47,6 @@ RENAMED = {
     "dsp.resample.resample_poly_jax":
         "a traced-JAX spelling of `resample_poly`, which the port has on "
         "torch (PR 8)",
-    "dsp.stft.istft_riq":
-        "the framed-DFT iSTFT's matmul form for XLA; the port's `istft` is "
-        "`torch.istft`",
-    "dsp.stft.overlap_add":
-        "the framed-DFT iSTFT's overlap-add for XLA; `torch.istft` does it",
     "nn.layers.Conv2dP":
         "the discriminator's 2-D conv; the port's is `nn.layers.Conv2d`",
     "nn.layers.normal_init":
@@ -308,6 +303,31 @@ def _stft_refuses_other_pad_modes():
         port_stft.stft(t(_wav(3)), 64, 16, 64, True, "symmetric")
 
 
+def _istft_riq():
+    """JAX's positional call at the MB-iSTFT head's (16, 4) and the iSTFT
+    head's (1024, 256) shapes."""
+    jax_stft, port_stft = _stft_modules()
+
+    for n_fft, hop, frames in ((16, 4, 40), (1024, 256, 12)):
+        riq = np.random.RandomState(n_fft).randn(
+            2, frames, n_fft + 2).astype(np.float32)
+        ref = jax_stft.istft_riq(jnp.asarray(riq), n_fft, hop, n_fft, True)
+        ours = port_stft.istft_riq(t(riq), n_fft, hop, n_fft, True)
+        assert_close(n(ours), np.asarray(ref), atol=1e-5, what=str(n_fft))
+
+
+def _overlap_add():
+    """JAX's positional call, hop dividing n_fft and not."""
+    jax_stft, port_stft = _stft_modules()
+
+    for n_fft, hop in ((16, 4), (10, 3)):
+        frames = np.random.RandomState(hop).randn(3, 7, n_fft).astype(
+            np.float32)
+        ref = jax_stft.overlap_add(jnp.asarray(frames), hop)
+        ours = port_stft.overlap_add(t(frames), hop)
+        assert_close(n(ours), np.asarray(ref), what=str((n_fft, hop)))
+
+
 def _make_lr_schedule():
     from mb_istft_vits_tpu.config import Config as JConfig
     from mb_istft_vits_tpu.train.step import make_lr_schedule as jax_lr
@@ -479,6 +499,8 @@ REPAIRS = {
     "stft_wrap": lambda _: _stft("wrap"),
     "stft_other_pad_mode_raises": lambda _: _stft_refuses_other_pad_modes(),
     "stft_magnitude": lambda _: _stft_magnitude(),
+    "istft_riq": lambda _: _istft_riq(),
+    "overlap_add": lambda _: _overlap_add(),
     "make_lr_schedule": lambda _: _make_lr_schedule(),
     "maximum_path": lambda _: _maximum_path(),
     "maximum_path_true_needs_the_card":
