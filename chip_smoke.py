@@ -22,10 +22,13 @@ Phases, one JSON line each:
            the fused MAS kernel and once on the two-pass pair
   train    flagship GAN training steps (D step, then G step against the
            updated D) at batch 16 on seeded int16 audio, spectrogram on
-           the card: step times, the D/G split, peak memory, a profiled
-           step, a bf16 step; checks finite metrics, moved f32 weights, a
-           falling mel loss, one MAS launch per step, the step's alignment
-           against the plain MAS
+           the card, through train_step, which runs the step's CUDA graph
+           (eager warm-up steps, a capture, replays; each step's route
+           reported): step times (the replays' median), the eager body's
+           D/G split, peak memory, a profiled replay, a bf16 step; checks
+           finite metrics, moved f32 weights, a falling mel loss, one MAS
+           launch per step (a replay counts its capture's launches), the
+           step's alignment against the plain MAS
   train_ms the Japanese 12-speaker multi-stream model
            (uudb_ms_istft_vits_ms.json) at full width, batch 16 of the 16
            longest UUDB rows (6 speakers), seeded 16 kHz audio: a first
@@ -40,6 +43,25 @@ Phases, one JSON line each:
   eval_ms  the trainer's evaluate() once at full width on train_ms's
            generator: 12 syntheses, copy synthesis, MCD / LSD / F0 and the
            TTS DTW MCD; its seconds and scalars
+  train_graphs the training step as CUDA graphs per batch signature
+           (train/graphs.py) against the eager body in this process, for
+           the flagship at batch 16 in f32 and with fp16_run, the SDP
+           model and the 12-speaker model: a replayed step against the
+           eager step from the same weights, draws and dropout seed at the
+           whole-step bars (lr 10, eps 10; past an epoch boundary, so the
+           update reads the decayed lr 5 from the lr tensor): bit for bit
+           under cuDNN's and torch's deterministic algorithms; under the
+           default ones the losses and D leaves within the bars and the G
+           updates, as one vector, within the G bar or 3x the eager
+           step's distance from its own repeats; each profiled replay's
+           MAS kernels on the card equal to the wrappers' counts; at the
+           config's lr,
+           the warm-up and capture (seconds, pool bytes), step ms of
+           graphs and eager (host-synced and CUDA events), launches a warm
+           step (one cudaGraphLaunch), busy share, MAS launches a step;
+           for the flagship a second bucket captured once in the same
+           pool, both replayed in turns, a resume that drops the graphs
+           and captures again, and the two-pass MAS pair from a replay
   train_cli the training CLI at a shrunk width, an eval and a pair every 2
            steps: 10 steps, then --reset-optimizer to step 12 (evals in the
            log, best.json, pruning to the newest 3 and the best, metrics
@@ -53,13 +75,16 @@ Phases, one JSON line each:
            corpus held on the card; checks the native loader path, every
            row's cache, host against card spectrograms, resident batches
            bit-equal to host ones, the pool's bytes, one MAS launch a step;
-           step ms, batch wait and host-to-device bytes of each feed, a
-           profiled step, peak memory; saves the pair
+           step ms (and each step's route: eager warm-up, capture or
+           replay, one graph per bucket and feed signature), batch wait
+           and host-to-device bytes of each feed, the graphs' captures and
+           pool bytes, a profiled replay, peak memory; saves the pair
   tools    the offline CLIs as child processes on the card: eval_checkpoint
            on train_data's pair (-n 4 --tts), eval_metrics, make_corpus and
            eval_vc (12-speaker config, random weights, 2 pairs),
            preprocess; exit codes 0 and finite scores
-  ddp      data-parallel training: two ranks spawned on cuda:0 over gloo
+  ddp      data-parallel training (eager: a data-parallel step is not
+           captured): two ranks spawned on cuda:0 over gloo
            (tests/torch_port_dist_worker.py), the flagship at full width, 8
            rows a rank (16 in all): a step on seeded global draws (lr 10,
            eps 10, every dropout off) at the whole-step bars of the CPU
@@ -76,7 +101,7 @@ Phases, one JSON line each:
            `python -m torch.distributed.run --nproc_per_node 1` (NCCL,
            world 1): exit 0, a pair, step 1 equal to the plain CLI's; and
            the error NCCL gives two ranks on one card
-  tp       parallel.dryrun.dryrun_multichip(2) (DDP, two ranks sharing the
+  tp       (eager, as ddp) parallel.dryrun.dryrun_multichip(2) (DDP, two ranks sharing the
            card over gloo), then one step of the 2-D sharding: two ranks on
            cuda:0 over gloo as a (1 x 2) data x model mesh, FSDP2, the
            dryrun's tiny model, held to the single-process step; the
@@ -133,13 +158,17 @@ Phases, one JSON line each:
            load_serving; 4 filelist texts bit-equal to the live module at
            their seeds and frame buckets, seeded repeats bit-equal,
            unseeded requests different, frames past every bucket
-           refused; a pair traced on the CPU and served on cuda:0 (within
-           one int16 step of the card-traced one); a bf16 pair against the
-           live bf16 module (its distance reported); a 12-speaker pair,
-           speakers 0 and 5, bit-equal to its live module; export and load
-           seconds, the bytes of params.pt and each .pt2 (each under a
-           tenth of the weights), the median RTF of 12 requests and the
-           launches a request, live against artifact
+           refused; the artifact's programs replayed as CUDA graphs
+           (infer/graphs.py), each request bit-equal to the artifact's
+           eager call of the same programs; a pair traced on the CPU and
+           served on cuda:0 (within one int16 step of the card-traced
+           one); a bf16 pair against the live bf16 module (its distance
+           reported); a 12-speaker pair, speakers 0 and 5, bit-equal to
+           its live module; export and load seconds, the bytes of
+           params.pt and each .pt2 (each under a tenth of the weights),
+           the median RTF of 12 requests and the launches a request (two
+           graph launches in the artifact's), live against artifact
+           against the artifact's eager call
   serve_ms the 12-speaker model of train_ms: warmup(), 4 UUDB rows as
            requests of speakers 0 and 11 (different PCM), one profiled, a
            seeded repeat at one bucket (bit-equal); synthesize_batch of 16
@@ -168,8 +197,10 @@ The serving phases run last, as the serving module pins cuDNN's
 deterministic algorithms for the process. Every serving call of their
 modules runs as a CUDA graph, captured at its first input signature.
 Every phase's line carries its wall seconds. Then one {"kernels": [...]}
-line (launch counts from the forward, train, train_sdp, train_ms, eval_ms, train_cli, train_data, ddp,
-tp and overfit run, the spawned ranks' own counts added, and serving,
+line (launch counts from the forward, train, train_sdp, train_ms, eval_ms,
+train_graphs, train_cli, train_data, ddp, tp and overfit run, a graph
+replay counting the launches of its capture, the spawned ranks' own counts
+added, and serving,
 times, bounds; `launches_by_path` beside them: the main path's and each
 measurement tool's of the bench phase, not added to `launches`;
 `launches` counts the first
@@ -206,6 +237,7 @@ MS_FILELIST = os.path.join(REPO, "filelists",
 ISTFT_CONFIG = os.path.join(REPO, "configs", "ljs_istft_vits.json")
 sys.path.insert(0, REPO)
 from mb_istft_vits_torch.bench_mas import bounds_ms  # noqa: E402
+from mb_istft_vits_torch.infer.graphs import WARMUP_ITERS  # noqa: E402
 from mb_istft_vits_torch.utils.timing import (  # noqa: E402
     kernel_time_ms,
     profile_call,
@@ -239,8 +271,8 @@ BATCH = 16  # the training forward's and the train phases' batch
 SERVE_REQUESTS = 8  # new-text requests after warmup, micro-batch callers
 SERVE_BATCH = 16  # lines in the serve phase's synthesize_batch
 TRAIN_STEPS = 6  # timed train steps after the first
-TRAIN_MS_STEPS = 4  # the same, of the multi-speaker model
-TRAIN_SDP_STEPS = 3  # the same, of the flagship with the stochastic predictor
+TRAIN_MS_STEPS = 5  # the same, of the multi-speaker model
+TRAIN_SDP_STEPS = 5  # the same, of the flagship with the stochastic predictor
 SDP_REQUESTS = 4  # serve_sdp's requests at noise_scale_w 0.8
 GRAPH_REQUESTS = 10  # headline requests timed in each of graphs and eager
 KNOBS = (0.667, 1.0, 0.8)  # noise_scale, length_scale, noise_scale_w
@@ -1147,13 +1179,18 @@ def mas_launches():
 
 
 def run_train_steps(state, batch, timed_steps, after_first=None):
-    """`train.step.train_step` on `batch`: one first step (cuDNN picks its
-    algorithms for every new shape; then `after_first(state)`), then
-    `timed_steps` timed steps (host ms around a synced step; the last one
-    split by CUDA events into prep + forward, D step and G step, and its
-    MAS input and output recorded), then one profiled step. Returns the
-    steps, the split, peak memory, whether the recorded alignment equals
-    the plain MAS, and the profile with its MAS launches."""
+    """`train.step.train_step` on `batch`, which on the card runs the
+    step's CUDA graph (train/graphs.py: eager warm-up steps, a capture,
+    then replays): one first step (cuDNN picks its algorithms for every
+    new shape; then `after_first(state)`), then `timed_steps` timed steps
+    (host ms around a synced step, each marked eager, capture or replay;
+    the last one the eager body, `train_step_eager`, split by CUDA events
+    into prep + forward, D step and G step, and its MAS input and output
+    recorded: a replay runs no Python to time or record), then one
+    profiled step, a replay, with a trailing one cut from the profile.
+    Returns the steps, `steady` (the replays' host ms), the split, peak
+    memory, whether the recorded alignment equals the plain MAS, the
+    profile with its MAS launches, and the graphs' counts."""
     from unittest import mock
 
     import torch
@@ -1162,15 +1199,16 @@ def run_train_steps(state, batch, timed_steps, after_first=None):
     from mb_istft_vits_torch.ops import mas
     from mb_istft_vits_torch.train import step as tstep
 
-    def step():
+    def step(fn=tstep.train_step):
         n0 = mas_launches()
+        before = graph_counts(state)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        metrics = {k: float(v) for k, v in
-                   tstep.train_step(state, batch).items()}
+        metrics = {k: float(v) for k, v in fn(state, batch).items()}
         torch.cuda.synchronize()
         return {"host_ms": (time.perf_counter() - t0) * 1e3,
-                "mas_launches": mas_launches() - n0, "metrics": metrics}
+                "mas_launches": mas_launches() - n0, "metrics": metrics,
+                "route": step_route(before, graph_counts(state))}
 
     torch.cuda.reset_peak_memory_stats()
     first = step()
@@ -1204,7 +1242,7 @@ def run_train_steps(state, batch, timed_steps, after_first=None):
             mock.patch.object(synthesizer, "maximum_path",
                               recorded(synthesizer.maximum_path)):
         begin.record()
-        steps.append(step())
+        steps.append(step(tstep.train_step_eager))
     (d0, d1), (g0, g1) = marks
     split = {"prep_and_forward_ms": begin.elapsed_time(d0),
              "d_step_ms": d0.elapsed_time(d1),
@@ -1212,15 +1250,76 @@ def run_train_steps(state, batch, timed_steps, after_first=None):
     peak = torch.cuda.max_memory_allocated()
     plain = mas.maximum_path(mas_io["neg_cent"], mas_io["mask"], False)
 
-    n0 = mas_launches()
-    profile = profile_call(lambda: (tstep.train_step(state, batch),
-                                    torch.cuda.synchronize()))
-    steady = [s["host_ms"] for s in steps]
+    profile, profiled_mas = profile_replay(state, batch)
+    steady = [s["host_ms"] for s in steps if s["route"] == "replay"]
     return {"first": first, "steps": steps, "first_check": first_check,
             "split": split, "peak": peak, "steady": steady,
             "mas_shape": list(mas_io["neg_cent"].shape),
             "attn_equals_plain": torch.equal(mas_io["path"], plain),
-            "profile": profile, "profiled_mas": mas_launches() - n0}
+            "profile": profile, "profiled_mas": profiled_mas,
+            "graphs": graph_report(state)}
+
+
+def graph_counts(state):
+    g = state.graphs
+    return (0, 0) if g is None else (g.captures, g.replays)
+
+
+def step_route(before, after):
+    """How a step ran, from the graphs' (captures, replays) around it."""
+    if after[0] > before[0]:
+        return "capture"
+    return "replay" if after[1] > before[1] else "eager"
+
+
+def graph_report(state):
+    """The state's step graphs: signatures, captures, replays, eager
+    warm-up steps, capture seconds and the pool's bytes after each
+    capture and now."""
+    g = state.graphs
+    if g is None:
+        return None
+    return {"signatures": len(g.keys()), "captures": g.captures,
+            "replays": g.replays, "eager_steps": g.eager_steps,
+            "capture_seconds": list(g.capture_seconds.values()),
+            "pool_bytes_at_capture": list(g.pool_bytes_at_capture.values()),
+            "pool_bytes": g.pool_bytes()}
+
+
+def profile_replay(state, batch, fn=None):
+    """One step (`train_step` unless `fn`) under profile_call, with
+    trailing ones cut from it when it is `train_step` (the profiler drops
+    the device records of a profile's last graph replays); (profile, the
+    profiled step's MAS launches). The profile's `mas_counted` holds what
+    each MAS wrapper counted in that step (for a replay, its capture's
+    counts: ops/mas.py's replay rule), and `mas_kernels_seen` whether the
+    profiler saw each of those kernels run on the card as many times."""
+    import collections
+
+    import torch
+
+    from mb_istft_vits_torch.ops import mas
+    from mb_istft_vits_torch.train import step as tstep
+
+    fn = fn or tstep.train_step
+    n = []
+
+    def one():
+        n.append(dict(mas.launch_counts))
+        fn(state, batch)
+        torch.cuda.synchronize()
+        n.append(dict(mas.launch_counts))
+
+    trailing = (lambda: (fn(state, batch), torch.cuda.synchronize())
+                if fn is tstep.train_step else None)
+    profile = profile_call(one, trailing=trailing)
+    counted = {k: n[1][k] - n[0][k] for k in n[0] if n[1][k] != n[0][k]}
+    seen = collections.Counter()
+    for name, calls in profile["mas_kernels"].items():
+        seen[re.search(r"\b(mas_\w+?)_kernel", name).group(1)] += calls
+    profile["mas_counted"] = counted
+    profile["mas_kernels_seen"] = dict(seen) == counted
+    return profile, sum(counted.get(k, 0) for k in ("mas_fused", "mas_fwd"))
 
 
 def train_report(run, batch, config):
@@ -1233,8 +1332,8 @@ def train_report(run, batch, config):
         first_step_ms=run["first"]["host_ms"], step_ms=run["steady"],
         step_ms_median=statistics.median(run["steady"]),
         split_last_step=run["split"], peak_memory_bytes=run["peak"],
-        steps=[run["first"]] + run["steps"], profile=profile,
-        device_busy_share=profile["device_busy_share"],
+        steps=[run["first"]] + run["steps"], graphs=run["graphs"],
+        profile=profile, device_busy_share=profile["device_busy_share"],
         device_overlap_ms=profile["device_overlap_ms"],
         mas_device_share=(profile["mas_device_ms"] / profile["device_ms"]
                           if profile["device_ms"] else None))
@@ -1248,6 +1347,7 @@ def train_checks(run):
                               for v in s["metrics"].values()),
         "mas_once_per_step": all(s["mas_launches"] == 1 for s in steps)
         and run["profiled_mas"] == 1,
+        "profiled_mas_kernels_seen": run["profile"]["mas_kernels_seen"],
         "attn_equals_plain": run["attn_equals_plain"],
     }
 
@@ -1374,6 +1474,24 @@ def ms_rows():
                 (line.rstrip("\n").split("|") for line in f)]
 
 
+def ms_batch(config):
+    """(rows, batch) of the 12-speaker model: the BATCH longest
+    MS_FILELIST rows with their speakers, seeded int16 audio."""
+    import torch
+
+    from mb_istft_vits_torch.text import frontend_ids
+
+    d = config.data
+    rows = sorted(ms_rows(), key=lambda r: len(frontend_ids(
+        r[1], d.text_module, d.text_cleaners, d.add_blank,
+        d.cleaned_text)))[-BATCH:]
+    # training_lengths keeps the b longest in this (ascending) order
+    batch = train_batch(config, BATCH, seed=5, texts=[t for _, t in rows])
+    batch["sid"] = torch.tensor([s for s, _ in rows], dtype=torch.int32,
+                                device="cuda")
+    return rows, batch
+
+
 def phase_train_ms(flagship_step_ms):
     """The Japanese multi-speaker multi-stream model
     (uudb_ms_istft_vits_ms.json) at full width: batch 16 of the 16 longest
@@ -1388,20 +1506,12 @@ def phase_train_ms(flagship_step_ms):
     import torch
 
     from mb_istft_vits_torch.config import Config
-    from mb_istft_vits_torch.text import frontend_ids
     from mb_istft_vits_torch.train import step as tstep
 
     config = Config.from_json(MS_CONFIG)
     config = dataclasses.replace(config, train=dataclasses.replace(
         config.train, batch_size=BATCH))
-    d = config.data
-    rows = sorted(ms_rows(), key=lambda r: len(frontend_ids(
-        r[1], d.text_module, d.text_cleaners, d.add_blank,
-        d.cleaned_text)))[-BATCH:]
-    # training_lengths keeps the b longest in this (ascending) order
-    batch = train_batch(config, BATCH, seed=5, texts=[t for _, t in rows])
-    batch["sid"] = torch.tensor([s for s, _ in rows], dtype=torch.int32,
-                                device="cuda")
+    rows, batch = ms_batch(config)
     state = tstep.create_train_state(config, torch.device("cuda"), seed=6)
 
     def speakers_with_gradient(state):
@@ -1427,6 +1537,422 @@ def phase_train_ms(flagship_step_ms):
     if failed:
         raise AssertionError(f"train_ms checks failed: {failed}")
     return state.net_g
+
+
+# the train_graphs phase: synced steps timed in each of graphs and eager
+# (alternating), and queued ones timed with CUDA events
+GRAPH_STEPS = 3
+# its compared step: lr 10 and eps 10 (the whole-step bars' setting, so
+# the updated weights hold the gradients) at step 2 of 2-step epochs with
+# lr_decay 0.5, so the replayed update must read the decayed lr 5
+GRAPH_CMP_TRAIN = {"learning_rate": 10.0, "eps": 10.0, "steps_per_epoch": 2,
+                   "lr_decay": 0.5}
+GRAPH_CMP_STEP = 2
+GRAPH_CMP_LR = 5.0
+GRAPH_CROP_FRAMES = 600  # the second bucket: the batch cut to 600 frames
+# cuDNN's default algorithms (held to the bars) and its deterministic ones
+# with torch's deterministic algorithms (held bit for bit: the gradients
+# of gather and of the embeddings are scatter-adds, whose atomics add in
+# any order otherwise), each for the capture and the eager step alike
+GRAPH_COMPARE = ({"enabled": True}, {"enabled": True, "deterministic": True})
+# under the default algorithms the replay's G updates may lie this many
+# times as far from the eager step's as the eager step's repeat does
+GRAPH_G_NOISE = 3.0
+GRAPH_EAGER_REPEATS = 2  # eager repeats that measure that distance
+
+
+def _state_leaves(state):
+    return {f"{net}.{k}": v for net, m in (("g", state.net_g),
+                                           ("d", state.net_d))
+            for k, v in m.state_dict().items()}
+
+
+def _reset_in_place(state, init):
+    """`state` back to the weights `init` and to zero AdamW moments and
+    counts, each written into the tensor the step graph reads."""
+    import torch
+
+    with torch.no_grad():
+        for k, v in _state_leaves(state).items():
+            v.copy_(init[k])
+        for optim in (state.optim_g, state.optim_d):
+            for st in optim.state.values():
+                for v in st.values():
+                    v.zero_()
+
+
+def _hold(gm, em, gs, es, init, lr):
+    """A replayed step (metrics gm, state gs) against the eager body's
+    (em, es) from the same weights `init`, draws and dropout seed, at the
+    whole-step bars: loss scalars relative, D leaves max-abs, each G
+    leaf's update (less its weight decay at `lr`) relative in L2, the
+    leaves without a gradient skipped; and whether every metric and leaf
+    is bit-equal. Returns (within the bars, bit-equal, the worst of
+    each, and `g_update_rel_l2_all`: the G updates' distance as one
+    vector of every compared leaf)."""
+    import torch
+
+    keep = 1.0 - lr * 0.01
+    loss_rel = max(abs(float(gm[k]) - float(v)) / max(abs(float(v)), 1e-12)
+                   for k, v in em.items()
+                   if k.startswith(("loss/", "grad_norm")))
+    gl, el = _state_leaves(gs), _state_leaves(es)
+    d_err = max(float((gl[k] - v).abs().max()) for k, v in el.items()
+                if k.startswith("d."))
+    g_rel, worst, compared = 0.0, None, 0
+    all_diff = all_size = 0.0  # squared norms over every compared leaf
+    for k, v in el.items():
+        if not k.startswith("g."):
+            continue
+        p0 = init[k].double()
+        upd = v.double() - keep * p0
+        size = float(upd.norm())
+        if size < 1e-6:
+            continue
+        diff = float((gl[k].double() - keep * p0 - upd).norm())
+        all_diff, all_size = all_diff + diff ** 2, all_size + size ** 2
+        if diff / size > g_rel:
+            g_rel, worst = diff / size, k
+        compared += 1
+    unequal = sorted(((float((gl[k] - v).abs().max()), k)
+                      for k, v in el.items() if not torch.equal(gl[k], v)),
+                     reverse=True)
+    bit_equal = (all(float(gm[k]) == float(v) for k, v in em.items())
+                 and not unequal)
+    ok = (loss_rel <= STEP_LOSS_REL and d_err <= STEP_D_ATOL
+          and g_rel <= STEP_G_REL and compared >= 100)
+    return ok, bit_equal, {"loss_rel": loss_rel, "d_max_abs": d_err,
+                           "g_update_rel_l2": g_rel, "g_worst_leaf": worst,
+                           "g_update_rel_l2_all": (all_diff / all_size) ** 0.5
+                           if all_size else 0.0,
+                           "g_leaves_compared": compared,
+                           "unequal_leaves": len(unequal),
+                           "most_unequal": unequal[:4]}
+
+
+def _deterministic(setting):
+    """cuDNN set as `setting` and, when it asks for determinism, torch's
+    deterministic algorithms as well (warnings only where an op has
+    none)."""
+    import contextlib
+
+    import torch
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(_cudnn(setting))
+    if setting.get("deterministic"):
+        before = (torch.are_deterministic_algorithms_enabled(),
+                  torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        stack.callback(lambda: torch.use_deterministic_algorithms(
+            before[0], warn_only=before[1]))
+    return stack
+
+
+def _replay_vs_eager(base, batch, setting):
+    """One replayed step against the eager body from the same weights,
+    under the cuDNN setting `setting` (the graph captured under it): two
+    copies of the fresh state `base` (at GRAPH_CMP_TRAIN); the graph one warms up and
+    captures (WARMUP_ITERS + 1 steps), is reset in place to the initial
+    weights and fresh moments, and both take step GRAPH_CMP_STEP (the
+    draws of that step, from each state's generator: draw_step's for the
+    graph, the model's own for the eager body; the same dropout seed).
+    Under cuDNN's default algorithms GRAPH_EAGER_REPEATS more copies take
+    the same eager step again (`eager_repeats`): how far the eager step
+    is from itself there."""
+    import copy
+
+    import torch
+
+    from mb_istft_vits_torch.train import step as tstep
+
+    t0 = time.perf_counter()
+    gs, es = copy.deepcopy(base), copy.deepcopy(base)
+    with _deterministic(setting):
+        init = {k: v.detach().clone() for k, v in _state_leaves(gs).items()}
+        for _ in range(WARMUP_ITERS + 1):
+            tstep.train_step(gs, batch)
+        _reset_in_place(gs, init)
+        gs.step = es.step = GRAPH_CMP_STEP
+        n0 = mas_launches()
+        torch.cuda.manual_seed(11)
+        gm = tstep.train_step(gs, batch)
+        torch.cuda.synchronize()
+        replay_mas = mas_launches() - n0
+        torch.cuda.manual_seed(11)
+        em = tstep.train_step_eager(es, batch)
+        torch.cuda.synchronize()
+        repeats = []
+        for _ in range(0 if setting.get("deterministic")
+                       else GRAPH_EAGER_REPEATS):
+            # the eager step again: how far eager is from itself
+            rs = copy.deepcopy(base)
+            rs.step = GRAPH_CMP_STEP
+            torch.cuda.manual_seed(11)
+            rm = tstep.train_step_eager(rs, batch)
+            ok, bit_equal, worst = _hold(rm, em, rs, es, init, GRAPH_CMP_LR)
+            repeats.append({"within_bars": ok, "bit_equal": bit_equal,
+                            **worst})
+            del rs
+    ok, bit_equal, worst = _hold(gm, em, gs, es, init, GRAPH_CMP_LR)
+    lr_read = float(gs.optim_g.param_groups[0]["lr"])
+    out = {"cudnn": setting, "within_bars": ok, "bit_equal": bit_equal,
+           **worst, "lr_in_replayed_update": lr_read,
+           "captures": gs.graphs.captures, "replays": gs.graphs.replays,
+           "replayed_step_mas_launches": replay_mas,
+           "eager_repeats": repeats,
+           "seconds": time.perf_counter() - t0,
+           "metrics_finite": all(math.isfinite(float(v))
+                                 for m in (gm, em) for v in m.values())}
+    del gs, es, init
+    torch.cuda.empty_cache()
+    return out
+
+
+def _timed_routes(state, batch, steps):
+    """The same state stepped through its graph and eagerly: synced steps
+    alternating (host ms each), then `steps` queued steps of each timed
+    with CUDA events (ms a step), a profiled step of each (launches, busy
+    share; the replay's with a trailing one cut) and each route's MAS
+    launches a step."""
+    import torch
+
+    from mb_istft_vits_torch.train import step as tstep
+
+    routes = {"graph": tstep.train_step, "eager": tstep.train_step_eager}
+    host = {k: [] for k in routes}
+    mas_per_step = {k: [] for k in routes}
+    finite = True
+    for _ in range(steps):
+        for name, fn in routes.items():
+            n0 = mas_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = fn(state, batch)
+            finite &= all(math.isfinite(float(v)) for v in metrics.values())
+            host[name].append((time.perf_counter() - t0) * 1e3)
+            mas_per_step[name].append(mas_launches() - n0)
+    events = {}
+    for name, fn in routes.items():
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            fn(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        events[name] = start.elapsed_time(end) / steps
+    profiles = {name: profile_replay(state, batch, fn)
+                for name, fn in routes.items()}
+    out = {}
+    for name in routes:
+        prof, mas_profiled = profiles[name]
+        out[name] = {
+            "step_ms_host": host[name],
+            "step_ms_host_median": statistics.median(host[name]),
+            "step_ms_events": events[name],
+            "launches": _launches(prof),
+            "device_ms": prof["device_ms"],
+            "device_busy_share": prof["device_busy_share"],
+            "wall_ms_profiled": prof["wall_ms_profiled"],
+            "mas_launches_per_step": mas_per_step[name] + [mas_profiled],
+            "mas_kernels_profiled": prof["mas_kernels"],
+            "mas_kernels_seen": prof["mas_kernels_seen"]}
+    out["metrics_finite"] = finite
+    return out
+
+
+def phase_train_graphs(root):
+    """The training step as CUDA graphs per batch signature
+    (train/graphs.py), against the eager body, in one process, for the
+    flagship at batch 16 in f32 and with fp16_run, the SDP model and the
+    12-speaker model (the train phases' batches):
+    - a replayed step against the eager body from the same weights, draws
+      and dropout seed (_replay_vs_eager): bit for bit under cuDNN's and
+      torch's deterministic algorithms; under the default ones the losses
+      and D leaves at the whole-step bars, and the G updates as one
+      vector within the G bar or GRAPH_G_NOISE times the eager step's
+      distance from its own repeats, the larger (single G leaves of the
+      eager step miss the G bar against its repeats there); the compared
+      step is past an epoch boundary, so its update reads the decayed lr
+      from the lr tensor;
+    - at the config's own lr, the graph's warm-up and capture (seconds,
+      pool bytes), then step ms of graphs and eager (host-synced and CUDA
+      events), launches a warm step, busy share and MAS launches a step
+      (_timed_routes);
+    - for the flagship in f32, a second bucket (the batch cut to
+      GRAPH_CROP_FRAMES frames) captured once in the same pool, both
+      buckets replayed in turns with no new capture, a checkpoint
+      resume that drops the graphs and captures again, and the state on
+      the two-pass MAS kernels (`mas_force="two_pass"`: a new key), their
+      launches counted from the replays."""
+    import copy
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from mb_istft_vits_torch.config import Config
+    from mb_istft_vits_torch.ops import mas
+    from mb_istft_vits_torch.train import checkpoint
+    from mb_istft_vits_torch.train import step as tstep
+
+    def batch16(path):
+        cfg = Config.from_json(path)
+        return dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, batch_size=BATCH))
+
+    flagship = batch16(CONFIG)
+    ms_config = batch16(MS_CONFIG)
+    flagship_batch = train_batch(flagship, BATCH, seed=4)
+    variants = {
+        "flagship": (flagship, flagship_batch),
+        "flagship_fp16_run": (dataclasses.replace(
+            flagship, train=dataclasses.replace(flagship.train,
+                                                fp16_run=True)),
+            flagship_batch),
+        "sdp": (batch16(sdp_config(root)), flagship_batch),
+        "12_speakers": (ms_config, ms_batch(ms_config)[1]),
+    }
+    report, checks = {}, {}
+    for name, (config, batch) in variants.items():
+        cmp_cfg = dataclasses.replace(config, train=dataclasses.replace(
+            config.train, **GRAPH_CMP_TRAIN))
+        base = tstep.create_train_state(cmp_cfg, torch.device("cuda"),
+                                        seed=3)
+        compared = [_replay_vs_eager(base, batch, setting)
+                    for setting in GRAPH_COMPARE]
+        # the same weights at the config's own lr and schedule
+        state = copy.deepcopy(base)
+        state.cfg = config
+        for optim in (state.optim_g, state.optim_d):
+            for group in optim.param_groups:
+                group["eps"] = config.train.eps
+        tstep.write_lr(state)
+        del base
+        warm = []
+        for _ in range(WARMUP_ITERS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tstep.train_step(state, batch)
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        timed = _timed_routes(state, batch, GRAPH_STEPS)
+        timed["seconds"] = time.perf_counter() - t0
+        row = {"compared": compared, "warmup_and_capture_ms": warm,
+               "graphs": graph_report(state), **timed}
+        row["graph_over_eager_events"] = (timed["graph"]["step_ms_events"]
+                                          / timed["eager"]["step_ms_events"])
+        default, deterministic = compared
+        # under cuDNN's default algorithms (and torch's atomic
+        # scatter-adds) single G leaves of the eager step miss the G bar
+        # against the eager step itself (its repeats: up to 2.9e-3 on a
+        # leaf in f32, 1.9e-3 in bf16): there the losses and D leaves are
+        # held to their bars, and the G updates as one vector to the G bar
+        # or GRAPH_G_NOISE times the farther repeat's distance, the larger
+        # (bf16's repeats lie 1.5-1.8e-4 from eager, or bit-equal); every
+        # leaf is held bit for bit under the deterministic algorithms
+        g_limit = max([STEP_G_REL] + [
+            GRAPH_G_NOISE * r["g_update_rel_l2_all"]
+            for r in default["eager_repeats"]])
+        default["g_update_rel_l2_all_limit"] = g_limit
+        checks[f"{name}_losses_and_d_within_bars"] = (
+            default["loss_rel"] <= STEP_LOSS_REL
+            and default["d_max_abs"] <= STEP_D_ATOL)
+        checks[f"{name}_g_updates_within_bar_or_eager_noise"] = (
+            default["g_update_rel_l2_all"] <= g_limit
+            and default["g_leaves_compared"] >= 100)
+        checks[f"{name}_bit_equal_deterministic"] = (
+            deterministic["bit_equal"] and deterministic["within_bars"])
+        checks[f"{name}_decayed_lr_replayed"] = all(
+            c["lr_in_replayed_update"] == GRAPH_CMP_LR for c in compared)
+        checks[f"{name}_one_graph_launch_a_step"] = \
+            timed["graph"]["launches"]["cuda_graph_launch_calls"] == 1
+        checks[f"{name}_mas_once_a_step"] = all(
+            n == 1 for r in ("graph", "eager")
+            for n in timed[r]["mas_launches_per_step"]) and all(
+            c["replayed_step_mas_launches"] == 1 for c in compared)
+        # the replay rule's counts against the kernels the card ran
+        checks[f"{name}_replayed_mas_kernels_seen"] = \
+            timed["graph"]["mas_kernels_seen"]
+        checks[f"{name}_one_capture"] = state.graphs.captures == 1 and all(
+            c["captures"] == 1 for c in compared)
+        checks[f"{name}_metrics_finite"] = timed["metrics_finite"] and all(
+            c["metrics_finite"] for c in compared)
+
+        if name == "flagship":
+            d = config.data
+            t_wav = (GRAPH_CROP_FRAMES * d.hop_length + d.filter_length
+                     - d.hop_length)
+            crop = dict(batch, wav=batch["wav"][:, :t_wav].contiguous(),
+                        spec_lengths=batch["spec_lengths"].clamp(
+                            max=GRAPH_CROP_FRAMES),
+                        wav_lengths=batch["wav_lengths"].clamp(max=t_wav))
+            pool_one = state.graphs.pool_bytes()
+            second = [tstep.train_step(state, crop)
+                      for _ in range(WARMUP_ITERS + 1)]
+            captures = state.graphs.captures
+            turns = [tstep.train_step(state, b)
+                     for b in (batch, crop, batch, crop)]
+            row["second_bucket"] = {
+                "frames": GRAPH_CROP_FRAMES,
+                "pool_bytes_one_graph": pool_one,
+                "pool_bytes_two_graphs": state.graphs.pool_bytes(),
+                "graphs": graph_report(state)}
+            checks["two_buckets_two_captures"] = (
+                captures == 2 == state.graphs.captures
+                and len(state.graphs) == 2)
+            checks["two_buckets_finite"] = all(
+                math.isfinite(float(v)) for m in second + turns
+                for v in m.values())
+            model_dir = os.path.join(root, "train_graphs")
+            checkpoint.save(model_dir, state)
+            resumed = checkpoint.resume(model_dir, state)
+            dropped = len(state.graphs) == 0
+            again = [tstep.train_step(state, batch)
+                     for _ in range(WARMUP_ITERS + 2)]
+            row["resume"] = {"step": resumed, "graphs_dropped": dropped,
+                             "graphs": graph_report(state)}
+            checks["resume_recaptures"] = (
+                dropped and state.graphs.captures == 3
+                and all(math.isfinite(float(v)) for m in again
+                        for v in m.values()))
+            shutil.rmtree(model_dir, ignore_errors=True)
+            # the two-pass MAS kernels (mas_fwd, mas_bwd) from a replay
+            state.mas_force = "two_pass"
+            n0 = dict(mas.launch_counts)
+            two = [tstep.train_step(state, batch)
+                   for _ in range(WARMUP_ITERS + 2)]
+            launched = {k: mas.launch_counts[k] - n0[k] for k in n0}
+            prof_two, _ = profile_replay(state, batch)
+            row["two_pass"] = {"steps": len(two), "launches": launched,
+                               "profiled": prof_two["mas_counted"],
+                               "profiled_kernels": prof_two["mas_kernels"],
+                               "graphs": graph_report(state)}
+            checks["two_pass_replayed"] = (
+                state.graphs.captures == 4
+                and launched == {"mas_fused": 0, "mas_fwd": len(two),
+                                 "mas_bwd": len(two), "mas_path": len(two)}
+                and all(math.isfinite(float(v)) for m in two
+                        for v in m.values()))
+            checks["two_pass_replayed_mas_kernels_seen"] = (
+                prof_two["mas_kernels_seen"] and prof_two["mas_counted"]
+                == {"mas_fwd": 1, "mas_bwd": 1, "mas_path": 1})
+        report[name] = row
+        del state
+        torch.cuda.empty_cache()
+    emit("train_graphs", batch=BATCH, warmup_iters=WARMUP_ITERS,
+         compared_step={"train": GRAPH_CMP_TRAIN, "step": GRAPH_CMP_STEP,
+                        "lr": GRAPH_CMP_LR},
+         bars={"loss_rel": STEP_LOSS_REL, "d_max_abs": STEP_D_ATOL,
+               "g_update_rel_l2": STEP_G_REL,
+               "g_update_rel_l2_all_eager_noise": GRAPH_G_NOISE},
+         variants=report, checks=checks)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"train_graphs checks failed: {failed}")
 
 
 EVAL_SCALARS = ("mcd_copy_synthesis", "lsd_copy_synthesis", "f0_rmse_hz",
@@ -1686,12 +2212,14 @@ def run_feed(state, batcher, epoch, feeder=None):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         n0 = mas_launches()
+        before = graph_counts(state)
         metrics = {k: float(v) for k, v in
                    tstep.train_step(state, batch).items()}
         torch.cuda.synchronize()
         steps.append({
             "wait_ms": (t1 - t0) * 1e3,
             "host_ms": (time.perf_counter() - t1) * 1e3,
+            "route": step_route(before, graph_counts(state)),
             "mas_launches": mas_launches() - n0,
             "h2d_bytes": (4 * len(batch["x"]) if feeder is not None
                           else sum(v.nbytes for v in batch.values())),
@@ -1787,10 +2315,9 @@ def phase_train_data(root):
     last = len(pcm.buckets) - 1
     probe = {k: torch.from_numpy(v).cuda() for k, v in
              pcm.make_batch(last, pcm.buckets[last][:batch_size]).items()}
-    n0 = mas_launches()
-    profile = profile_call(lambda: (tstep.train_step(state, probe),
-                                    torch.cuda.synchronize()))
-    profiled_mas = mas_launches() - n0
+    before = graph_counts(state)
+    profile, profiled_mas = profile_replay(state, probe)
+    after = graph_counts(state)
 
     rows = [r[0] for r in host.dataset.rows]
     cached = [os.path.exists(os.path.splitext(p)[0] + ".spec.npy")
@@ -1817,7 +2344,11 @@ def phase_train_data(root):
 
     def summary(steps):
         ms = [s["host_ms"] for s in steps]
+        replays = [s["host_ms"] for s in steps if s["route"] == "replay"]
         return {"step_ms": ms, "step_ms_median": statistics.median(ms),
+                "route": [s["route"] for s in steps],
+                "replay_ms_median": statistics.median(replays)
+                if replays else None,
                 "wait_ms": [s["wait_ms"] for s in steps],
                 "h2d_bytes_per_step": statistics.median(
                     s["h2d_bytes"] for s in steps),
@@ -1840,8 +2371,11 @@ def phase_train_data(root):
             and pool_allocated >= feeder.nbytes,
         "mas_once_per_step": all(s["mas_launches"] == 1 for s in all_steps)
         and profiled_mas == 1,
+        "profiled_mas_kernels_seen": profile["mas_kernels_seen"],
         "metrics_finite": all(math.isfinite(v) for s in all_steps
                               for v in s["metrics"].values()),
+        # the profiled step and its two trailing ones: replays, no capture
+        "profiled_step_replayed": after == (before[0], before[1] + 3),
     }
     emit("train_data", config=os.path.relpath(CONFIG, REPO),
          batch=batch_size, rows=len(rows), corpus_seconds=corpus_s,
@@ -1853,6 +2387,7 @@ def phase_train_data(root):
          loss_g_mel=[s["metrics"]["loss/g/mel"] for s in all_steps],
          first_nonfinite=_first_nonfinite(feeds),
          host_spec_vs_card=spec_gaps, peak_memory_bytes=peak,
+         graphs=graph_report(state),
          profile=profile, device_busy_share=profile["device_busy_share"],
          device_overlap_ms=profile["device_overlap_ms"], checks=checks)
     failed = [k for k, v in checks.items() if not v]
@@ -2396,6 +2931,8 @@ def phase_ddp(root):
         and rel[1] <= STEP_LOSS_REL,
     }
     emit("ddp", ranks=2, rows_per_rank=DDP_ROWS, global_batch=2 * DDP_ROWS,
+         step_route="eager: a data-parallel state is not captured "
+                    "(train/graphs.py routes a world of 1 only)",
          backend="gloo", device="cuda:0 (both ranks: one card shared, so "
          "the step times are not a scaling number)",
          step_ms_per_rank=timed,
@@ -2490,6 +3027,8 @@ def phase_tp():
                                  for r in ranks),
     }
     emit("tp", dryrun=dict(dry, seconds=t2 - t0),
+         step_route="eager: an FSDP2 state is not captured "
+                    "(train/graphs.py routes a world of 1 only)",
          mesh="data 1 x model 2, gloo, both ranks on cuda:0 (gloo runs "
               "FSDP2's c10d collectives on CUDA tensors; chosen, not a "
               "fallback)", seconds_2d=t1 - t0,
@@ -2529,10 +3068,9 @@ def phase_overfit():
     state = tstep.create_train_state(cfg, torch.device("cuda"), seed=0)
     batch = {k: torch.from_numpy(v).cuda() for k, v in
              overfit_check.synthetic_batch(cfg).items()}
-    for _ in range(2):
+    for _ in range(WARMUP_ITERS + 1):  # warm-ups, the capture
         tstep.train_step(state, batch)
-    profile = profile_call(lambda: (tstep.train_step(state, batch),
-                                    torch.cuda.synchronize()))
+    profile = profile_replay(state, batch)[0]
     ms = result["step_ms"]
     checks = {
         "mel_below_0.7_of_first": result["last_mel"]
@@ -2541,6 +3079,7 @@ def phase_overfit():
                              for v in result["metrics"].values()),
         "mas_on_the_card_each_step":
         launched["mas_fused"] + launched["mas_fwd"] == OVERFIT_STEPS,
+        "profiled_mas_kernels_seen": profile["mas_kernels_seen"],
     }
     emit("overfit", steps=OVERFIT_STEPS, first_mel=result["first_mel"],
          last_mel=result["last_mel"],
@@ -3076,6 +3615,19 @@ def _live_at(sm, art, text, *args, **kw):
         sm.FRAME_BUCKETS = old
 
 
+def _artifact_eager(art, *args, **kw):
+    """The artifact's request with its programs called directly, no graph,
+    and its knobs on the CPU: what it served before its graph cache."""
+    from mb_istft_vits_torch.infer.export import _scalar
+
+    art._run = lambda key, program, *a: program(art.params, *a)
+    art._knob = _scalar
+    try:
+        return art.synthesize(*args, **kw)
+    finally:
+        del art._run, art._knob
+
+
 def _exported(sm, root, name, pairs):
     """export_serving of `pairs` into root/name, then load_serving onto
     cuda:0: (artifact, export s, load s, file bytes)."""
@@ -3107,11 +3659,14 @@ def phase_export(smi):
     bucket refused; one pair traced with the module on the CPU and served
     on cuda:0 (within one int16 step of the card-traced artifact); one
     pair of the bf16 module against the live bf16 module; one pair of the
-    12-speaker model with speakers 0 and 5 against its live module.
-    Reports export and load seconds, the bytes of params.pt and of each
-    .pt2, the median RTF of EXPORT_RTF_REQUESTS requests in the live
-    module and in the artifact, and cudaLaunchKernel calls a request in
-    each."""
+    12-speaker model with speakers 0 and 5 against its live module. The
+    artifact replays its programs as CUDA graphs (its GraphCache); each
+    request is held bit for bit to the artifact's eager call of the same
+    programs (no graph, CPU knobs: _artifact_eager). Reports export and
+    load seconds, the bytes of params.pt and of each .pt2, the median RTF
+    of EXPORT_RTF_REQUESTS requests in the live module, the artifact and
+    its eager call, the launches a request in each (two graph launches in
+    the artifact's), and the artifact's graphs."""
     import numpy as np
     import torch
 
@@ -3142,6 +3697,11 @@ def phase_export(smi):
             diff.setdefault("f32_vs_live", []).append(err(got, want))
             again, _ = art.synthesize(text, seed=i)
             check("seeded_repeat_bit_equal", np.array_equal(again, got))
+            eager, _ = _artifact_eager(art, text, seed=i)
+            check("replay_bit_equal_to_eager_call",
+                  np.array_equal(eager, got))
+            diff.setdefault("replay_vs_eager_call", []).append(
+                err(got, eager))
         r1, _ = art.synthesize(texts[0])
         r2, _ = art.synthesize(texts[0])
         check("unseeded_requests_differ",
@@ -3170,15 +3730,35 @@ def phase_export(smi):
 
         # the median RTF and launches a request, live against artifact
         # (every shape has run above)
-        rtf = {"live": [], "artifact": []}
+        rtf = {"live": [], "artifact": [], "artifact_eager": []}
         for i, text in enumerate(texts):
             rtf["live"].append(_live_at(live, art, text, seed=i)[1]["rtf"])
             rtf["artifact"].append(art.synthesize(text, seed=i)[1]["rtf"])
+            rtf["artifact_eager"].append(
+                _artifact_eager(art, text, seed=i)[1]["rtf"])
+
+        def live_call():
+            return _live_at(live, art, texts[0], seed=0)
+
+        def art_call():
+            return art.synthesize(texts[0], seed=0)
+
+        # a profile's last graph replay loses its device records: each
+        # graph profile has a trailing request, cut from it
         profiles = {
-            "live": profile_call(lambda: _live_at(live, art, texts[0],
-                                                  seed=0)),
-            "artifact": profile_call(lambda: art.synthesize(texts[0],
-                                                            seed=0))}
+            "live": profile_call(live_call, trailing=live_call),
+            "artifact": profile_call(art_call, trailing=art_call),
+            "artifact_eager": profile_call(
+                lambda: _artifact_eager(art, texts[0], seed=0))}
+        check("artifact_request_two_graph_launches",
+              profiles["artifact"]["cuda_graph_launch_calls"] == 2)
+        artifact_graphs = {"keys": [list(map(str, k[:3]))
+                                    for k in art.graphs.keys()],
+                           "captures": art.graphs.captures,
+                           "replays": art.graphs.replays,
+                           "capture_seconds": list(
+                               art.graphs.capture_seconds.values()),
+                           "pool_bytes": art.graphs.pool_bytes()}
         del art, moved, live
         torch.cuda.empty_cache()
 
@@ -3224,7 +3804,9 @@ def phase_export(smi):
          texts=EXPORT_TEXTS, files=files, max_abs_err=diff,
          bf16_bit_equal=all(e == 0.0 for e in diff["bf16_vs_live"]),
          median_rtf={k: statistics.median(v) for k, v in rtf.items()},
-         rtf=rtf, profile_request=profiles, checks=checks)
+         rtf=rtf, profile_request=profiles,
+         launches_request={k: _launches(v) for k, v in profiles.items()},
+         artifact_graphs=artifact_graphs, checks=checks)
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"export checks failed: {failed}")
@@ -3252,6 +3834,8 @@ def main() -> int:
         net_ms = run_phase(phase_train_ms, flagship[0])
         run_phase(phase_eval_ms, net_ms)
         del net_ms
+        torch.cuda.empty_cache()
+        run_phase(phase_train_graphs, root)
         torch.cuda.empty_cache()
         run_phase(phase_train_cli)
         torch.cuda.empty_cache()

@@ -9,20 +9,28 @@ ONE JSON line.
         [--bf16] [--feed-host] [--device-spec] [--widen N] [--flops] \
         [--device cpu]
 
-`step_ms` is the card's time a step: CUDA events before the first and
-after the last of `--steps` queued steps (one sync at the end, as
-training runs), over the steps; `step_ms_host` is the same run on the
-host clock, and `steps_per_s` and `audio_s_per_s` are read from it, the
-rate a training run gets. `step_ms_sync` (synced each step) and the
-feed's step times are host-clock means too. The halves are CUDA events
-around `train/step.py`'s `d_step` and `g_step` and around the batch
-prep and generator forward before them (`forward_ms`), medians over
-`--steps` steps. `--flops` counts one step with `torch.utils.flop_counter`
-(`utils.timing.count`, on the card): `mfu` is the counted FLOPs over
-`step_ms`, divided by the peak of the step's precision (`peak_for`:
-float32 with TF32 off, as the trainer runs, or bf16 with `--bf16`). On
-the CPU every device time, `achieved_tflops` and `mfu` is null.
-`--no-donate` (XLA's buffer donation) is accepted and unused.
+Every step is `train/step.py`'s `train_step`, which on a card is what
+the trainer runs: the step's CUDA graph for the batch's signature
+(`train/graphs.py`). `first_step_s` is the wall time of the steps up to
+and including the first replay: the eager warm-up steps and the capture
+(`first_steps` of them; one on the CPU). `graphs` (signatures stepped
+at), `captures`, `capture_s` (their seconds) and `pool_bytes` (the
+graphs' memory pool) follow it. `step_ms` is the card's time a step:
+CUDA events before the first and after the last of `--steps` queued
+steps (one sync at the end, as training runs), over the steps;
+`step_ms_host` is the same run on the host clock, and `steps_per_s` and
+`audio_s_per_s` are read from it, the rate a training run gets.
+`step_ms_sync` (synced each step) and the feed's step times are
+host-clock means too. The halves are CUDA events around `d_step` and
+`g_step` and around the batch prep and generator forward before them
+(`forward_ms`) of the eager step (`train_step_eager`: a replay has no
+halves to time), medians over `--steps` steps. `--flops` counts one eager
+step with `torch.utils.flop_counter` (`utils.timing.count`, on the card;
+a replay shows no op to it): `mfu` is the counted FLOPs over `step_ms`,
+divided by the peak of the step's precision (`peak_for`: float32 with
+TF32 off, as the trainer runs, or bf16 with `--bf16`). On the CPU every
+device time, `capture_s`, `pool_bytes`, `achieved_tflops` and `mfu` is
+null. `--no-donate` (XLA's buffer donation) is accepted and unused.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from mb_istft_vits_torch.bench import CONFIG
 from mb_istft_vits_torch.utils import timing
 
 DEVICE_FIELDS = ("forward_ms", "d_step_ms", "g_step_ms", "step_ms",
-                 "achieved_tflops", "mfu")
+                 "capture_s", "pool_bytes", "achieved_tflops", "mfu")
 WIDENED = ("inter_channels", "hidden_channels", "filter_channels",
            "upsample_initial_channel")
 
@@ -100,7 +108,7 @@ def step_precision(cfg, device) -> tuple:
 
 def split_ms(state, batch, steps: int) -> dict:
     """Median CUDA-event ms of the batch prep and generator forward, the D
-    step and the G step over `steps` train steps."""
+    step and the G step over `steps` eager train steps."""
     from mb_istft_vits_torch.train import step as tstep
 
     marks = []
@@ -123,7 +131,7 @@ def split_ms(state, batch, steps: int) -> dict:
             marks.clear()
             begin = torch.cuda.Event(enable_timing=True)
             begin.record()
-            tstep.train_step(state, batch)
+            tstep.train_step_eager(state, batch)
             torch.cuda.synchronize()
             (d0, d1), (g0, g1) = marks
             rows.append((begin.elapsed_time(d0), d0.elapsed_time(d1),
@@ -183,10 +191,24 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def graph_fields(state) -> dict:
+    """The step graphs' counts: signatures stepped at, captures, their
+    seconds and the pool's bytes (the last two null off a card)."""
+    g = state.graphs
+    captured = g is not None and g.captures > 0
+    return {"graphs": len(g.keys()) if g is not None else 0,
+            "captures": g.captures if g is not None else 0,
+            "capture_s": sum(g.capture_seconds.values()) if captured
+            else None,
+            "pool_bytes": g.pool_bytes() if captured else None}
+
+
 def main(argv=None) -> int:
     from mb_istft_vits_torch.data.prefetch import device_prefetch
+    from mb_istft_vits_torch.infer.graphs import WARMUP_ITERS
+    from mb_istft_vits_torch.train.graphs import routed
     from mb_istft_vits_torch.train.step import (create_train_state,
-                                                train_step)
+                                                train_step, train_step_eager)
 
     args = build_parser().parse_args(argv)
     device = timing.tool_device(args.device)
@@ -198,11 +220,16 @@ def main(argv=None) -> int:
     batch = to_device(host, device)
     state = create_train_state(cfg, device, seed=0)
 
+    # the warm-up steps and the capture, up to the first replay
+    first_steps = 1 + (WARMUP_ITERS if on_card and routed(state) else 0)
     t0 = time.perf_counter()
-    metrics = train_step(state, batch)
-    loss_g = float(metrics["loss/g/total"])
+    for i in range(first_steps):
+        metrics = train_step(state, batch)
+        if i == 0:
+            loss_g = float(metrics["loss/g/total"])
+    float(metrics["loss/g/total"])
     out = {"metric": "train_step", "first_step_s": time.perf_counter() - t0,
-           "first_loss_g": loss_g, "batch": b,
+           "first_steps": first_steps, "first_loss_g": loss_g, "batch": b,
            "spec_frames": args.spec_frames, "text_len": args.text_len,
            "widen": args.widen, "bf16": bool(cfg.train.fp16_run),
            "peak_memory_bytes": None,
@@ -223,7 +250,7 @@ def main(argv=None) -> int:
                steps_per_s=1e3 / host_ms)
 
     if args.flops:
-        counted = timing.count(lambda: train_step(state, batch))
+        counted = timing.count(lambda: train_step_eager(state, batch))
         precision, peak = step_precision(cfg, device)
         achieved = None if dev_ms is None else counted["flops"] / (
             dev_ms / 1e3)
@@ -246,6 +273,7 @@ def main(argv=None) -> int:
                    feed_gb_per_s=nbytes / out["step_ms_host_fed"] / 1e6)
 
     metrics = train_step(state, batch)
+    out.update(graph_fields(state))
     if on_card:
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
     out["audio_s_per_s"] = (b * args.spec_frames * d.hop_length

@@ -34,11 +34,19 @@ same frame bucket, bit for bit; without a seed they come from the
 artifact's own stream, in call order.
 
 `noise_scale`, `length_scale` and `noise_scale_w` are inputs too, so one
-program serves every value: 0-dim float32 tensors kept on the CPU whatever
-the device. An operand on the CPU that holds one value enters an op as a
-Python float does, so the program's arithmetic is the live module's in
-bfloat16 too (the live module's graphs take 0-dim CUDA knobs, which the
-model's arithmetic, `nn.layers.scale`, takes to the same bits).
+program serves every value: 0-dim float32 tensors, traced on the CPU
+whatever the device. An operand on the CPU that holds one value enters an
+op as a Python float does, so the program's arithmetic is the live
+module's in bfloat16 too; served on a card they are 0-dim CUDA tensors,
+as the live module's graphs take them, which the model's arithmetic
+(`nn.layers.scale`) takes to the same bits.
+
+On a card `ExportedServing` replays its programs as CUDA graphs, one per
+program and input signature (`infer.graphs.GraphCache`, as the live
+module does): the probe as ("probe", TB) and the infer program as
+("infer", TB, FB), each with the weights bound, the knobs 0-dim float32
+tensors on the card (kept per value) and the noise drawn outside the
+graph. On the CPU the programs run directly, their keys kept.
 
 Devices: the manifest records the device the programs were traced on.
 `ExportedServing` loads onto CUDA unless the caller asks for the CPU and
@@ -63,6 +71,7 @@ import torch.nn as nn
 
 from mb_istft_vits_torch.device import disable_tf32, resolve_device
 from mb_istft_vits_torch.infer import programs
+from mb_istft_vits_torch.infer.graphs import GraphCache, KnobCache
 from mb_istft_vits_torch.infer.synthesis import SynthesisModule, _next_bucket
 from mb_istft_vits_torch.text import frontend_ids
 
@@ -193,7 +202,8 @@ class ExportedServing:
     """Serve from an `export_serving` artifact: text -> waveform with the
     exported programs and weights only (model code never runs), on
     `device` (CUDA unless "cpu" is asked for; no fallback). Every program
-    is loaded once, here."""
+    is loaded once, here; on a card each runs as a CUDA graph per input
+    signature (`graphs`, captured at its first request)."""
 
     def __init__(self, artifact_dir: str, seed: int = 0, *,
                  device: Optional[Union[str, torch.device]] = None):
@@ -238,6 +248,19 @@ class ExportedServing:
             self._infer[(tb, fb)] = load(f"infer_t{tb}_f{fb}.pt2")
         # unseeded requests draw from this stream, in call order
         self._generator = torch.Generator(dev).manual_seed(seed)
+        self.graphs = GraphCache()
+        self._knobs = KnobCache()
+
+    def _knob(self, v: float) -> torch.Tensor:
+        """A knob as a program input: a 0-dim float32 tensor on the
+        serving device, kept per value."""
+        return self._knobs(v, self.device)
+
+    def _run(self, key: tuple, program: nn.Module, *args):
+        """program(params, *args): its graph at `key` and these inputs'
+        signature on a card, a direct call on the CPU."""
+        return self.graphs.run(key, functools.partial(program, self.params),
+                               args, self.device)
 
     # -- frontend (the live SynthesisModule's host-side path) -------------
     def text_to_ids(self, text: str,
@@ -288,10 +311,11 @@ class ExportedServing:
                else torch.Generator(self.device).manual_seed(int(seed)))
         w_eps = (torch.randn((1, tb, 2), generator=gen, device=self.device)
                  if self.manifest["use_sdp"] else None)
-        ns, ls, nsw = map(_scalar, (noise_scale, length_scale, noise_scale_w))
+        ns, ls, nsw = map(self._knob,
+                          (noise_scale, length_scale, noise_scale_w))
         with torch.no_grad():
-            frames = int(self._probe[tb](self.params, x, xl, sid_t, ls, nsw,
-                                         w_eps)[0])
+            frames = int(self._run(("probe", tb), self._probe[tb], x, xl,
+                                   sid_t, ls, nsw, w_eps)[0])
             fb = next((b for b in fbs if b >= frames), None)
             if fb is None:
                 # the live module grows its bucket and decodes again; an
@@ -305,8 +329,9 @@ class ExportedServing:
             eps = torch.randn((1, self.manifest["inter_channels"], fb),
                               generator=gen, dtype=self.compute_dtype,
                               device=self.device).transpose(1, 2).contiguous()
-            pcm16, y_lengths = self._infer[(tb, fb)](
-                self.params, x, xl, sid_t, ns, ls, nsw, eps, w_eps)
+            pcm16, y_lengths = self._run(
+                ("infer", tb, fb), self._infer[(tb, fb)], x, xl, sid_t, ns,
+                ls, nsw, eps, w_eps)
             pcm16, y_lengths = pcm16[0].cpu().numpy(), y_lengths.cpu()
         y_len = min(int(y_lengths[0]), fb)
         audio = pcm16.astype(np.float32)[: y_len * self.hop_length] / 32767.0

@@ -64,6 +64,28 @@ class _Graph(NamedTuple):
     single: bool  # fn returned one tensor, not a tuple
 
 
+class KnobCache:
+    """Knob values (noise and length scales) as program inputs: 0-dim
+    float32 tensors kept per (value, device) (JAX `_dev_scalar`), so a
+    request uploads nothing for them and a graph reads them from where it
+    was captured. Cleared past `LIMIT` values."""
+
+    LIMIT = 256
+
+    def __init__(self):
+        self._knobs: Dict[Tuple[float, torch.device], torch.Tensor] = {}
+
+    def __call__(self, v: float, device: torch.device) -> torch.Tensor:
+        key = (float(v), torch.device(device))
+        hit = self._knobs.get(key)
+        if hit is None:
+            if len(self._knobs) > self.LIMIT:
+                self._knobs.clear()
+            hit = self._knobs[key] = torch.tensor(
+                float(v), dtype=torch.float32, device=device)
+        return hit
+
+
 class GraphCache:
     """The captured graphs of one serving module. `captures`, `replays`
     and `capture_seconds` ({key: seconds}) count what it did."""
@@ -148,8 +170,15 @@ class GraphCache:
     def pool_bytes(self) -> Optional[int]:
         """Bytes the caching allocator holds in this cache's pool, over
         every device (None before the first capture)."""
-        if self.pool is None:
-            return None
-        pool = tuple(self.pool)
-        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-                   if tuple(s.get("segment_pool_id", ())) == pool)
+        return pool_bytes(self.pool)
+
+
+def pool_bytes(pool) -> Optional[int]:
+    """Bytes the caching allocator holds in the graph memory pool `pool`
+    (`torch.cuda.graph_pool_handle()`), over every device; None for no
+    pool."""
+    if pool is None:
+        return None
+    pool = tuple(pool)
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == pool)

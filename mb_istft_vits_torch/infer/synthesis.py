@@ -77,7 +77,7 @@ import torch
 from mb_istft_vits_torch.config import Config
 from mb_istft_vits_torch.device import disable_tf32, resolve_device
 from mb_istft_vits_torch.infer import programs
-from mb_istft_vits_torch.infer.graphs import GraphCache
+from mb_istft_vits_torch.infer.graphs import GraphCache, KnobCache
 from mb_istft_vits_torch.models import Synthesizer
 from mb_istft_vits_torch.parallel.mesh import (
     mesh_devices,
@@ -211,7 +211,7 @@ class SynthesisModule:
         # scalars, per (value, device)
         self.graphs = GraphCache()
         self.retry_captures = 0
-        self._knobs: Dict[Tuple[float, torch.device], torch.Tensor] = {}
+        self._knobs = KnobCache()
 
     # ------------------------------------------------------------------
     # host <-> device
@@ -319,16 +319,8 @@ class SynthesisModule:
                                body, args, dev)
 
     def _knob(self, v, device: torch.device) -> torch.Tensor:
-        """A knob as a 0-dim float32 tensor on `device`, kept per value
-        (JAX `_dev_scalar`), so a request uploads nothing for it."""
-        key = (float(v), device)
-        hit = self._knobs.get(key)
-        if hit is None:
-            if len(self._knobs) > 256:
-                self._knobs.clear()
-            hit = self._knobs[key] = torch.tensor(
-                float(v), dtype=torch.float32, device=device)
-        return hit
+        """A knob as a 0-dim float32 tensor on `device`, kept per value."""
+        return self._knobs(v, device)
 
     def _knobs_on(self, replica: int, *values) -> List[torch.Tensor]:
         dev = self._replicas[replica][0]

@@ -14,7 +14,8 @@ and `chip_smoke.py` hold the kernels against it.
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+import contextlib
+from typing import Dict, Iterator, Tuple, Union
 
 import torch
 
@@ -24,13 +25,39 @@ _MAX_NEG = -1e9
 
 # Launches of each kernel in this process. Each wrapper adds one where it
 # launches its kernel, and nowhere else: `mas_backtrack` launches two,
-# mas_bwd_kernel ("mas_bwd") and mas_path_kernel ("mas_path").
+# mas_bwd_kernel ("mas_bwd") and mas_path_kernel ("mas_path"). A wrapper
+# called while a CUDA graph is captured launches nothing then, and every
+# replay of the graph launches its kernels again: `captured_launches` and
+# `add_launches` move its counts from the capture to the replays.
 launch_counts = {"mas_fused": 0, "mas_fwd": 0, "mas_bwd": 0, "mas_path": 0}
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches() -> Iterator[Dict[str, int]]:
+    """Around a CUDA graph's capture: yields a dict that holds, once the
+    block is left, what the wrappers counted inside it, and takes those
+    counts back out of `launch_counts` (a capture launches nothing). Each
+    replay of the graph then adds them (`add_launches`), so the counts
+    stay kernels launched."""
+    before = dict(launch_counts)
+    diff: Dict[str, int] = {}
+    try:
+        yield diff
+    finally:
+        for name, n in before.items():
+            diff[name] = launch_counts[name] - n
+            launch_counts[name] = n
+
+
+def add_launches(diff: Dict[str, int]) -> None:
+    """A replay's launches: the counts its capture recorded."""
+    for name, n in diff.items():
+        launch_counts[name] += n
 
 
 def mas_lengths(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -14,8 +14,13 @@ ONE JSON line.
 `--parse-only` re-reads the newest `*.pt.trace.json` under DIR (it
 stands in for the JAX script's `xplane.pb`, which needs TensorFlow). The
 batch is the JAX script's: device-spec int16 audio from RandomState(0),
-every row full length. On the CPU the trace holds no device event and
-every device field is null.
+every row full length. The steps are `train_step`'s, on a card the
+replays of the step's CUDA graph (the warm-up steps and the capture run
+before the trace). Trailing steps end the trace (`timing.run_trailing`),
+and the parse cuts them off with everything after them: the profiler has
+dropped the device records of a trace's last graph replays.
+On the CPU the trace holds no device event and every device field is
+null.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from mb_istft_vits_torch.utils import timing
 DEVICE_FIELDS = ("device_ms", "device_busy_ms", "device_busy_share")
 # (category, pattern of a device event's name), first match wins
 CATEGORIES = (
-    ("mas", r"\bmas_\w+_kernel"),
+    ("mas", timing.MAS_KERNEL),
     ("copy/memset", r"^(memcpy|memset)|\bcopy_kernel|\bMemcpy|\bMemset"),
     ("conv dgrad", r"dgrad"),
     ("conv wgrad", r"wgrad"),
@@ -145,6 +150,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from mb_istft_vits_torch.infer.graphs import WARMUP_ITERS
     from mb_istft_vits_torch.utils.observability import profile_trace
 
     args = build_parser().parse_args(argv)
@@ -156,13 +162,17 @@ def main(argv=None) -> int:
         return 0
     device = timing.tool_device(args.device)
     work = (infer_work if args.infer else train_work)(args, device)
-    work()  # warm: first-shape set-up stays out of the trace
+    # warm: first-shape set-up, and the step's warm-up steps and capture,
+    # stay out of the trace
+    for _ in range(1 if args.infer else WARMUP_ITERS + 1):
+        work()
     timing.sync(device)
     os.makedirs(args.logdir, exist_ok=True)
     with profile_trace(args.logdir):
         for _ in range(args.steps):
             out = work()
         float(out.float().sum())  # ends in a device sync
+        timing.run_trailing(lambda: float(work().float().sum()))
     report = parse_trace(newest_trace(args.logdir), args.top_k)
     timing.emit({"metric": "profile_infer" if args.infer else "profile_step",
                  "steps": args.steps, "batch": None if args.infer

@@ -10,6 +10,12 @@ Beyond the reference, as in `mb_istft_vits_tpu/train/checkpoint.py`:
 the best-by-eval step), `record_best` / `best_step` keep which pair is
 best by evaluation (`best.json` beside the pairs), and `snap_to_epoch`
 moves a resumed run back to its last finished epoch.
+
+The optimizer state is written in the form a CPU AdamW holds (float lr,
+not capturable, step counts on the CPU), whatever optimizer wrote it, so
+a pair written by a card's capturable optimizer loads into an eager CPU
+state and the reverse; loading keeps the state's own lr tensor and
+capturable flag, and puts its step counts where its update reads them.
 """
 
 from __future__ import annotations
@@ -53,9 +59,43 @@ def save(model_dir: str, state: TrainState) -> None:
         os.makedirs(model_dir, exist_ok=True)
         path = _path(model_dir, prefix, state.step)
         torch.save({"model": model, "iteration": state.step,
-                    "optimizer": optim_sd, "learning_rate": lr},
+                    "optimizer": _portable(optim_sd), "learning_rate": lr},
                    path + ".tmp")
         os.replace(path + ".tmp", path)
+
+
+def _portable(optim_sd: dict) -> dict:
+    """An AdamW state dict in a CPU AdamW's form: each group's lr a float
+    and capturable off, each step count a CPU tensor."""
+    return {
+        "state": {i: {k: v.detach().cpu()
+                      if k == "step" and isinstance(v, torch.Tensor) else v
+                      for k, v in st.items()}
+                  for i, st in optim_sd["state"].items()},
+        "param_groups": [dict(g, lr=float(g["lr"]), capturable=False)
+                         for g in optim_sd["param_groups"]],
+    }
+
+
+def load_optimizer(optim: torch.optim.Optimizer, optim_sd: dict) -> None:
+    """`optim.load_state_dict(optim_sd)`, keeping `optim`'s own lr tensor
+    (filled with the saved lr) and capturable flag, with the step counts
+    on the parameters' device when it is capturable. The moments are new
+    tensors: a CUDA graph that read the old ones must be dropped."""
+    kept = [(g["lr"], g.get("capturable", False))
+            for g in optim.param_groups]
+    optim.load_state_dict(optim_sd)
+    for group, (lr, capturable) in zip(optim.param_groups, kept):
+        if isinstance(lr, torch.Tensor):
+            lr.fill_(float(group["lr"]))
+            group["lr"] = lr
+        group["capturable"] = capturable
+        for p in group["params"]:
+            st = optim.state.get(p, {})
+            if isinstance(st.get("step"), torch.Tensor):
+                st["step"] = st["step"].to(
+                    p.device if capturable else torch.device("cpu"),
+                    torch.float32)
 
 
 def saved_steps(model_dir: str) -> List[int]:
@@ -135,7 +175,11 @@ def resume(model_dir: str, state: TrainState,
     `weights_only` (the CLI's --reset-optimizer, the reference's
     train_latest_fixed.py:117-128) keeps fresh optimizers, so the lr
     schedule starts again from the initial lr while the step keeps the
-    data order. Returns the step, or None when there is no pair."""
+    data order. Returns the step, or None when there is no pair.
+
+    The weights are copied into the parameters in place, so the state's
+    step graphs (`train.graphs`) stay valid when only they load; loading
+    the optimizers replaces their moments, and drops the graphs."""
     step = latest_step(model_dir)
     if step is None:
         return None
@@ -145,7 +189,9 @@ def resume(model_dir: str, state: TrainState,
                           map_location=state.device, weights_only=True)
         net.load_state_dict(ckpt["model"])
         if not weights_only:
-            optim.load_state_dict(ckpt["optimizer"])
+            load_optimizer(optim, ckpt["optimizer"])
+    if not weights_only and state.graphs is not None:
+        state.graphs.clear()
     state.step = step
     _sync_lr_offset(state)
     return step
@@ -163,13 +209,14 @@ def snap_to_epoch(state: TrainState, steps_per_epoch: int) -> int:
     the step and every AdamW parameter's step count go back by the same
     number of steps (JAX `retime_opt_state`), so the lr and the bias
     correction stay with the replayed data (fresh optimizers, after
-    --reset-optimizer, have no count to move). Returns the new step."""
+    --reset-optimizer, have no count to move). The counts are written in
+    place, where the step graphs read them. Returns the new step."""
     back = state.step % max(steps_per_epoch, 1)
     if back:
         state.step -= back
         for optim in (state.optim_g, state.optim_d):
             for s in optim.state.values():
                 if "step" in s:
-                    s["step"] = s["step"] - back
+                    s["step"] -= back  # in place on a tensor
         _sync_lr_offset(state)
     return state.step

@@ -1,0 +1,248 @@
+"""CUDA graphs of the training step, one per batch signature (the port's
+counterpart of the JAX package's two jitted train programs, `d_step` and
+`g_step` of `train/step.py:make_train_step`, compiled once per bucket
+shape: "2 per bucket", `train.py:262-266`). One graph holds both halves.
+
+`TrainGraphs.step(state, batch, draws)` is one real training step. At a
+new key, the batch's signature (each step input's shape and dtype, or
+None: "x", "x_lengths", "wav" int16 or float, "spec" present or not,
+"spec_lengths", "sid", and the draws) with the model variant, `fp16_run`,
+`mas_force` and the device, the first `WARMUP_ITERS` calls run the eager
+body (`train.step.step_body`) on a side stream, each the step it is: a
+training warm-up changes the weights, so it cannot be run and thrown
+away, and it sets up what a capture cannot (cuDNN's algorithm choice,
+cuFFT's plans, the mel basis, the MAS library's build, the gradients and
+AdamW's moments). The next call captures the body on static copies of
+its inputs and replays it for that same step; every later call at the key
+copies its inputs into those buffers and replays. Every call is one step,
+so `state.step`, the draws (`train.step.draw_step`, made before the
+step from the step's generator) and the lr schedule (`write_lr`, filled
+into the optimizers' lr tensors before the step) advance as eagerly.
+Dropout draws from torch's default CUDA generator, whose offset a replay
+advances.
+
+Nothing that outlives a replay lives in a graph's memory pool: the
+gradients, AdamW's moments, step counts and lr are made by the eager
+warm-up steps, outside any pool, and each graph zeroes the gradients in
+place and writes the same tensors. So all of a state's graphs share one
+pool, replayed one at a time on the caller's stream, in any order. A
+capture in which a parameter's gradient first appears raises. The
+metrics leave the graph as one stacked float32 buffer, copied out at each
+replay (a later replay overwrites it) and split into 0-d tensors of
+their eager dtypes.
+
+`train.step.train_step` routes a state here when it has a world of 1 (no
+DDP or FSDP2 wrapper: capturing their collectives is not done; such a
+state steps eagerly, as JAX's compiled-program cache is single-device
+too, `train.py:436-444`). On a device without graphs (the CPU) the body
+runs directly and its key is kept all the same (`keys()`). A capture or
+replay that fails raises; nothing falls back to eager.
+
+Whatever replaces or rewrites the tensors a graph reads must drop the
+state's graphs (`clear`): `train.checkpoint.resume` does when it loads
+optimizer state; loading weights alone and `snap_to_epoch` write in place.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from mb_istft_vits_torch.infer.graphs import (_CAPTURE_LOCK, WARMUP_ITERS,
+                                              pool_bytes, signature)
+from mb_istft_vits_torch.ops import mas
+from mb_istft_vits_torch.train.step import (StepDraws, TrainState,
+                                            draw_step, step_body,
+                                            train_step_eager, write_lr)
+
+# the batch entries the step reads, in the graph's input order
+STEP_KEYS = ("x", "x_lengths", "wav", "spec", "spec_lengths", "sid")
+
+
+def routed(state: TrainState) -> bool:
+    """Whether `train_step` steps `state` through `TrainGraphs`: a world of
+    1, no DDP or FSDP2 wrapper."""
+    return (state.ddp_g is None and state.ddp_d is None
+            and state.tp_mesh is None)
+
+
+def _args(batch: Dict[str, torch.Tensor], draws: Optional[StepDraws]
+          ) -> List[Optional[torch.Tensor]]:
+    return ([batch.get(k) for k in STEP_KEYS]
+            + list(draws if draws is not None else StepDraws(None, None)))
+
+
+def _body(state: TrainState, args: Sequence[Optional[torch.Tensor]]
+          ) -> Dict[str, torch.Tensor]:
+    n = len(STEP_KEYS)
+    batch = {k: a for k, a in zip(STEP_KEYS, args[:n]) if a is not None}
+    return step_body(state, batch, StepDraws(*args[n:]))
+
+
+class _TrainGraph:
+    """One captured step: the graph, its static input buffers, the stacked
+    metrics it writes (names and eager dtypes), and the MAS launches of
+    its capture, which each replay adds (`ops.mas.add_launches`)."""
+
+    def __init__(self, graph, inputs: List[Optional[torch.Tensor]],
+                 metrics: torch.Tensor, names: Tuple[str, ...],
+                 dtypes: Tuple[torch.dtype, ...], launches: Dict[str, int]):
+        self.graph, self.inputs, self.metrics = graph, inputs, metrics
+        self.names, self.dtypes, self.launches = names, dtypes, launches
+
+    def replay(self, args: Sequence[Optional[torch.Tensor]]
+               ) -> Dict[str, torch.Tensor]:
+        for buf, a in zip(self.inputs, args):
+            if buf is not None:
+                buf.copy_(a, non_blocking=True)
+        self.graph.replay()
+        mas.add_launches(self.launches)
+        flat = self.metrics.clone()
+        return {k: v.to(dt) for k, v, dt in
+                zip(self.names, flat.unbind(), self.dtypes)}
+
+
+class TrainGraphs:
+    """The step graphs of one `TrainState`. `captures`, `replays`,
+    `eager_steps` (the warm-ups), `capture_seconds` and
+    `pool_bytes_at_capture` ({key: value}) count what it did."""
+
+    def __init__(self):
+        self.pool = None  # made at the first capture (needs a card)
+        self._side: Optional[torch.cuda.Stream] = None
+        self._graphs: Dict[tuple, _TrainGraph] = {}
+        self._warm: Dict[tuple, int] = {}  # eager steps taken at a key
+        self.captures = 0
+        self.replays = 0
+        self.eager_steps = 0
+        self.capture_seconds: Dict[tuple, float] = {}
+        self.pool_bytes_at_capture: Dict[tuple, Optional[int]] = {}
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def keys(self) -> List[tuple]:
+        """Every key stepped at: captured on a card, run directly on the
+        CPU."""
+        return list(self._warm)
+
+    def clear(self) -> None:
+        """Drop every graph (and the warm-up counts): the next steps warm
+        up and capture again, into a new pool (the allocator releases a
+        pool once no graph holds it, and its handle cannot be reused)."""
+        self._graphs.clear()
+        self._warm.clear()
+        self.pool = None
+
+    @staticmethod
+    def key(state: TrainState, args: Sequence[Optional[torch.Tensor]]
+            ) -> tuple:
+        m = state.cfg.model
+        return ("train", type(state.net_g.dec).__name__, m.use_sdp,
+                m.n_speakers, state.cfg.train.fp16_run, state.mas_force,
+                state.device, signature(args))
+
+    def pool_bytes(self) -> Optional[int]:
+        """Bytes the caching allocator holds in the graphs' pool (None
+        before the first capture)."""
+        return pool_bytes(self.pool)
+
+    def step(self, state: TrainState, batch: Dict[str, torch.Tensor],
+             draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
+        """One training step of `state` on `batch` (`train_step`'s
+        contract); advances `state.step`."""
+        dev = state.device
+        if dev.type != "cuda":
+            self._warm[self.key(state, _args(batch, draws))] = 0
+            return train_step_eager(state, batch, draws)
+        if draws is None:
+            draws = draw_step(state, batch)
+        args = _args(batch, draws)
+        for a in args:
+            if a is not None and a.device != dev:
+                raise ValueError(f"a step input is on {a.device}, not {dev}")
+        key = self.key(state, args)
+        write_lr(state)
+        with torch.cuda.device(dev):
+            metrics = self._run(key, state, args)
+        metrics["learning_rate"] = torch.tensor(state.learning_rate())
+        state.step += 1
+        return metrics
+
+    def _run(self, key, state, args) -> Dict[str, torch.Tensor]:
+        g = self._graphs.get(key)
+        if g is None:
+            warm = self._warm.get(key, 0)
+            if warm < WARMUP_ITERS:
+                self._warm[key] = warm + 1
+                return self._eager(state, args)
+            g = self._graphs[key] = self._capture(key, state, args)
+        metrics = g.replay(args)
+        self.replays += 1
+        return metrics
+
+    def _side_stream(self) -> torch.cuda.Stream:
+        if self._side is None:
+            self._side = torch.cuda.Stream()
+        return self._side
+
+    def _eager(self, state, args) -> Dict[str, torch.Tensor]:
+        """A warm-up step: the body on the side stream the captures use."""
+        current, side = torch.cuda.current_stream(), self._side_stream()
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            metrics = _body(state, args)
+        current.wait_stream(side)
+        for v in metrics.values():  # made on the side stream, read on ours
+            v.record_stream(current)
+        self.eager_steps += 1
+        return metrics
+
+    def _capture(self, key, state, args) -> _TrainGraph:
+        t0 = time.perf_counter()
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        inputs = [None if a is None else a.detach().clone() for a in args]
+        params = [p for net in (state.net_g, state.net_d)
+                  for p in net.parameters()]
+        without_grad = [p.grad is None for p in params]
+        current, side = torch.cuda.current_stream(), self._side_stream()
+        side.wait_stream(current)
+        # the warm-up steps leave the allocator's cache full of blocks the
+        # graph's pool cannot take, and a capture cannot free them: at
+        # batch 64 the capture then runs out of memory. So the cache is
+        # emptied first, as torch.cuda.graph does
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        graph = torch.cuda.CUDAGraph()
+        with _CAPTURE_LOCK, torch.cuda.stream(side), \
+                mas.captured_launches() as launches:
+            graph.capture_begin(pool=self.pool,
+                                capture_error_mode="thread_local")
+            try:
+                metrics = _body(state, inputs)
+                names = tuple(metrics)
+                dtypes = tuple(metrics[k].dtype for k in names)
+                flat = torch.stack([metrics[k].float().reshape(())
+                                    for k in names])
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # the capture is invalid; the body's error says why
+                raise
+            graph.capture_end()
+        current.wait_stream(side)
+        appeared = sum(1 for p, none in zip(params, without_grad)
+                       if none and p.grad is not None)
+        if appeared:
+            raise RuntimeError(
+                f"train graph {key[:-1]}: {appeared} gradient(s) first "
+                "allocated inside the capture, in the graphs' pool; the "
+                "eager warm-up steps must make every gradient")
+        self.captures += 1
+        self.capture_seconds[key] = time.perf_counter() - t0
+        self.pool_bytes_at_capture[key] = self.pool_bytes()
+        return _TrainGraph(graph, inputs, flat, names, dtypes, launches)

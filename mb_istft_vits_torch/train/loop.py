@@ -3,7 +3,8 @@
 `--device-resident` corpus on the card), resume with the epoch snap, the
 step loop with loader prefetch, metrics every `log_interval` steps,
 evaluation, checkpoints, best-by-eval and pruning every `eval_interval`
-steps, and a checkpoint on SIGTERM.
+steps, and a checkpoint on SIGTERM. On one card the steps run as CUDA
+graphs, one per bucket (`train.graphs`); each capture is logged.
 
 Evaluation (`evaluate`, JAX `train.py:112-232`) runs whenever the
 validation set loads. Its scalars always go to the log and decide the
@@ -410,10 +411,17 @@ def _run(args: argparse.Namespace, info) -> int:
         t_last = time.perf_counter()
         first_epoch = state.step // spe if state.step < last else t.epochs
         batches = _batches(batcher, first_epoch, t.epochs, device, feeder)
+        captures = 0
         with _Sigterm(device) as sigterm, contextlib.closing(batches):
             for batch in batches:
                 metrics = train_step(state, batch)
                 step = state.step
+                graphs = state.graphs
+                if graphs is not None and graphs.captures > captures:
+                    captures = graphs.captures
+                    pool = graphs.pool_bytes() or 0
+                    logger.info("step %d: captured a step graph (%d in all, "
+                                "pool %.1f MB)", step, captures, pool / 1e6)
                 stop = sigterm.agreed()
                 if rank0 and step % t.log_interval == 0:
                     m = {k: float(v) for k, v in metrics.items()}

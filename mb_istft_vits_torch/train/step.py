@@ -34,13 +34,22 @@ subgraph in the first (`Synthesizer.fake_slice`) only to keep each TPU
 program small; one forward shared by both halves gives the same fake and
 the same draws. Master weights, optimizer state and every loss stay
 float32; there is no loss scaling.
+
+Where JAX compiles its two programs once per bucket shape, `train_step`
+runs the step as a CUDA graph per batch signature (`train.graphs`) on a
+card with a world of 1; `train_step_eager` is the same step kernel by
+kernel. So that the body can be captured, it draws nothing and writes no
+Python value into the device: the draws come in as tensors (`draw_step`
+makes them from the step's generator, in the eager order), the lr is a
+0-dim tensor of each capturable optimizer that `write_lr` fills before
+the step, and the gradients are zeroed in place, never set to None.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -85,7 +94,11 @@ class TrainState:
     Data parallel: `ddp_g` / `ddp_d` are the DDP wrappers the forwards go
     through (None: the modules themselves), `data_rank` / `data_world`
     this process's rows of the global batch, and `tp_mesh` the data x
-    model mesh when FSDP2 shards the modules (`parallel.tp`)."""
+    model mesh when FSDP2 shards the modules (`parallel.tp`).
+
+    `mas_force` routes the alignment (`ops.mas.maximum_path(force=)`);
+    `graphs` holds the step's CUDA graphs (`train.graphs.TrainGraphs`,
+    made at the first routed step)."""
 
     cfg: Config
     net_g: Synthesizer
@@ -100,6 +113,9 @@ class TrainState:
     data_rank: int = 0
     data_world: int = 1
     tp_mesh: Optional[object] = None
+    mas_force: str = "auto"
+    graphs: Optional[Any] = dataclasses.field(default=None, repr=False,
+                                              compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -148,10 +164,19 @@ def make_optimizer(params, train_cfg: TrainConfig) -> torch.optim.AdamW:
     """AdamW with the config's betas and eps and weight decay 0.01. Its
     update, -lr * (m_hat / (sqrt(v_hat) + eps) + 0.01 * p), is the JAX
     package's `leaf_adamw`; the trainer sets its lr from the schedule
-    before every step."""
-    return torch.optim.AdamW(params, lr=train_cfg.learning_rate,
-                             betas=tuple(train_cfg.betas), eps=train_cfg.eps,
-                             weight_decay=WEIGHT_DECAY)
+    before every step. On CUDA parameters (not FSDP2's DTensors) it is
+    capturable, its lr a 0-dim float32 tensor on their device and its step
+    counts device tensors, so that a CUDA graph can hold the update; the
+    CPU has no capturable AdamW."""
+    params = list(params)
+    capturable = (bool(params) and params[0].is_cuda
+                  and not any(hasattr(p, "to_local") for p in params))
+    lr = (torch.tensor(train_cfg.learning_rate, dtype=torch.float32,
+                       device=params[0].device) if capturable
+          else train_cfg.learning_rate)
+    return torch.optim.AdamW(params, lr=lr, betas=tuple(train_cfg.betas),
+                             eps=train_cfg.eps, weight_decay=WEIGHT_DECAY,
+                             capturable=capturable)
 
 
 def create_train_state(cfg: Config, device: torch.device,
@@ -189,10 +214,12 @@ def prep_batch(batch: Dict[str, torch.Tensor], cfg: Config
 
 
 def _autocast(state: TrainState):
-    """bf16 autocast around the G and D compute when `fp16_run`."""
+    """bf16 autocast around the G and D compute when `fp16_run`, without
+    its cache of cast weights (a CUDA graph must not keep one)."""
     if not state.cfg.train.fp16_run:
         return contextlib.nullcontext()
-    return torch.autocast(state.device.type, dtype=torch.bfloat16)
+    return torch.autocast(state.device.type, dtype=torch.bfloat16,
+                          cache_enabled=False)
 
 
 def _global_norm(params) -> torch.Tensor:
@@ -220,17 +247,35 @@ def _reduce_replicated(state: TrainState, params) -> None:
             [g.numel() for g in grads])))
 
 
-def optimizer_step(optim: torch.optim.AdamW, params, lr: float,
+def set_lr(optim: torch.optim.AdamW, lr: float) -> None:
+    """Every group's lr: filled into the lr tensor of a capturable
+    optimizer (the tensor a captured update reads), else assigned."""
+    for group in optim.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def write_lr(state: TrainState) -> None:
+    """The schedule's lr of the next step into both optimizers."""
+    lr = state.learning_rate()
+    set_lr(state.optim_d, lr)
+    set_lr(state.optim_g, lr)
+
+
+def optimizer_step(optim: torch.optim.AdamW, params, lr: Optional[float],
                    clip_value: Optional[float] = None) -> None:
     """Value-clip the gradients of `params` (when `clip_value` is given,
-    reference commons.py:146-161), then one AdamW step at `lr`."""
+    reference commons.py:146-161), then one AdamW step at `lr` (None: at
+    the lr the optimizer holds, which `write_lr` wrote)."""
     if clip_value is not None:
         # FSDP2's DTensors and plain tensors do not mix in one foreach op
         mixed = any(hasattr(p, "to_local") for p in params)
         torch.nn.utils.clip_grad_value_(params, clip_value,
                                         foreach=False if mixed else None)
-    for group in optim.param_groups:
-        group["lr"] = lr
+    if lr is not None:
+        set_lr(optim, lr)
     optim.step()
 
 
@@ -239,12 +284,47 @@ def g_forward(state: TrainState, batch: Dict[str, torch.Tensor],
     """The step's one generator forward (`Synthesizer.forward`'s tuple);
     without `draws`, they come from the step's generator."""
     draws = draws or StepDraws(None, None)
+    # with every draw given there is no generator: torch refuses to make a
+    # CUDA generator while a graph is captured
+    drawn = (draws.posterior_eps is not None and draws.ids_slice is not None
+             and (draws.sdp_eps is not None or not state.cfg.model.use_sdp))
     with _autocast(state):
         return state.fwd_g(batch["x"], batch["x_lengths"], batch["spec"],
                            batch["spec_lengths"], batch.get("sid"),
                            posterior_eps=draws.posterior_eps,
                            ids_slice=draws.ids_slice, sdp_eps=draws.sdp_eps,
-                           generator=state.step_generator())
+                           generator=None if drawn
+                           else state.step_generator(),
+                           mas_force=state.mas_force)
+
+
+def draw_step(state: TrainState, batch: Dict[str, torch.Tensor]
+              ) -> StepDraws:
+    """The draws `g_forward` would take from the step's generator for
+    `batch` (the collate's, before `prep_batch`), in its order and dtypes:
+    the posterior noise [B, C, T_spec] (float32: under `fp16_run`'s
+    autocast the encoder's bf16 projection is multiplied by a float32 mask
+    before the draw takes its dtype), the stochastic duration predictor's
+    noise [B, T_x, 2] (float32 likewise), then the slice's uniform [B].
+    Passed as `draws`, they give the step that drew them itself, bit for
+    bit. A state with a world of 1 (a data-parallel step takes the global
+    batch's draws)."""
+    d, m = state.cfg.data, state.cfg.model
+    b, t_x = batch["x"].shape
+    if "spec" in batch:
+        t_spec = batch["spec"].shape[1]
+    else:
+        t_spec = (batch["wav"].shape[1] - (d.filter_length - d.hop_length)
+                  ) // d.hop_length
+    dev = batch["x"].device
+    gen = state.step_generator()
+    eps = torch.randn((b, m.inter_channels, t_spec), generator=gen,
+                      dtype=torch.float32, device=dev).transpose(1, 2)
+    sdp_eps = (torch.randn((b, t_x, 2), generator=gen, dtype=torch.float32,
+                           device=dev) if m.use_sdp else None)
+    u = torch.rand(b, generator=gen, device=dev)
+    top = torch.clamp(batch["spec_lengths"] - m.segment_size + 1, min=1)
+    return StepDraws(eps, (u * top).to(torch.int32), sdp_eps)
 
 
 def real_slice(state: TrainState, batch, ids_slice) -> torch.Tensor:
@@ -267,14 +347,15 @@ def d_loss(state: TrainState, y: torch.Tensor, y_hat: torch.Tensor
 def d_step(state: TrainState, y: torch.Tensor, y_hat: torch.Tensor
            ) -> Dict[str, torch.Tensor]:
     """Discriminator step on (real y, fake y_hat [B, 1, T], detached
-    here): LSGAN loss, AdamW at the schedule's lr, no clip."""
+    here): LSGAN loss, AdamW at the lr the optimizer holds (`write_lr`),
+    no clip. The gradients are zeroed in place."""
     loss_disc = d_loss(state, y, y_hat)
-    state.optim_d.zero_grad()
+    state.optim_d.zero_grad(set_to_none=False)
     loss_disc.backward()
     params = list(state.net_d.parameters())
     _reduce_replicated(state, params)
     grad_norm_d = _global_norm(params)
-    optimizer_step(state.optim_d, params, state.learning_rate())
+    optimizer_step(state.optim_d, params, None)
     return {"loss/d/total": loss_disc.detach(), "grad_norm_d": grad_norm_d}
 
 
@@ -302,7 +383,7 @@ def g_losses(state: TrainState, batch, out, y: torch.Tensor
     # (through DDP it would arm a reduction that never comes); D's own
     # gradients are not needed. FSDP2's sharded parameters keep
     # requires_grad: there the G backward fills D's gradients and the next
-    # D step's zero_grad drops them.
+    # D step's zero_grad zeroes them.
     toggle = state.tp_mesh is None
     if toggle:
         state.net_d.requires_grad_(False)
@@ -329,7 +410,8 @@ def g_losses(state: TrainState, batch, out, y: torch.Tensor
 def g_step(state: TrainState, batch, out, y: torch.Tensor
            ) -> Dict[str, torch.Tensor]:
     """Generator step against the (already updated) discriminator: the
-    losses of `out` (`g_losses`), value clip, AdamW. Data-parallel, the
+    losses of `out` (`g_losses`), value clip, AdamW at the lr the optimizer
+    holds (`write_lr`), gradients zeroed in place. Data-parallel, the
     KL and duration terms are scaled to the global batch's normalisation
     (module docstring); the losses returned are this rank's terms, whose
     average over the ranks is the global batch's loss."""
@@ -346,12 +428,12 @@ def g_step(state: TrainState, batch, out, y: torch.Tensor
         losses["loss/g/dur"] = losses["loss/g/dur"] * scale[0]
         losses["loss/g/kl"] = losses["loss/g/kl"] * scale[1]
     total = sum(losses.values())
-    state.optim_g.zero_grad()
+    state.optim_g.zero_grad(set_to_none=False)
     total.backward()
     params = list(state.net_g.parameters())
     _reduce_replicated(state, params)
     grad_norm_g = _global_norm(params)
-    optimizer_step(state.optim_g, params, state.learning_rate(),
+    optimizer_step(state.optim_g, params, None,
                    state.cfg.train.grad_clip_value)
     metrics = {"loss/g/total": total.detach()}
     metrics.update({k: v.detach() for k, v in losses.items()})
@@ -385,6 +467,33 @@ def _average_losses(state: TrainState, metrics: Dict[str, torch.Tensor]
     metrics.update(zip(keys, stacked.unbind()))
 
 
+def step_body(state: TrainState, batch: Dict[str, torch.Tensor],
+              draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
+    """One D step then one G step against the updated D, at the lr the
+    optimizers hold, as 0-d metric tensors; what a CUDA graph of the step
+    holds. It leaves `state.step` and the lr to its caller."""
+    batch = prep_batch(batch, state.cfg)
+    out = g_forward(state, batch, _rank_rows(state, draws,
+                                             batch["x"].shape[0]))
+    y = real_slice(state, batch, out[4])
+    metrics = d_step(state, y, out[0].transpose(1, 2))
+    metrics.update(g_step(state, batch, out, y))
+    if state.world > 1:
+        _average_losses(state, metrics)
+    return metrics
+
+
+def train_step_eager(state: TrainState, batch: Dict[str, torch.Tensor],
+                     draws: Optional[StepDraws] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """`train_step` kernel by kernel, never through a graph."""
+    write_lr(state)
+    metrics = step_body(state, batch, draws)
+    metrics["learning_rate"] = torch.tensor(state.learning_rate())
+    state.step += 1
+    return metrics
+
+
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
     """One D step then one G step against the updated D; advances
@@ -394,15 +503,17 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     model). Returns the JAX package's metrics as 0-d tensors (reading
     them waits for the device). Data-parallel, `batch` is this rank's rows
     and `draws` the global batch's; the metrics are the global batch's,
-    equal on every rank."""
-    batch = prep_batch(batch, state.cfg)
-    out = g_forward(state, batch, _rank_rows(state, draws,
-                                             batch["x"].shape[0]))
-    y = real_slice(state, batch, out[4])
-    metrics = d_step(state, y, out[0].transpose(1, 2))
-    metrics.update(g_step(state, batch, out, y))
-    if state.world > 1:
-        _average_losses(state, metrics)
-    metrics["learning_rate"] = torch.tensor(state.learning_rate())
-    state.step += 1
-    return metrics
+    equal on every rank.
+
+    On a card, a state with a world of 1 steps through its CUDA graphs,
+    one per batch signature (`train.graphs.TrainGraphs`: eager warm-up
+    steps, then a capture, then replays); on the CPU the body runs
+    directly and the signature's key is kept. A data-parallel state (DDP
+    or FSDP2) steps eagerly: capturing the collectives is not done."""
+    from mb_istft_vits_torch.train.graphs import TrainGraphs, routed
+
+    if not routed(state):
+        return train_step_eager(state, batch, draws)
+    if state.graphs is None:
+        state.graphs = TrainGraphs()
+    return state.graphs.step(state, batch, draws)

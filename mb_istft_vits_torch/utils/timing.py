@@ -214,11 +214,15 @@ def trace_device_events(path: str) -> Tuple[List[dict], float]:
     """(device events, window us) of a Chrome trace written by
     torch.profiler: each kernel, copy and memset with its name, category,
     stream, start and duration (us); the window spans every event of the
-    trace, host and device."""
+    trace, host and device, that starts before the trace's first
+    `TRAILING_MARK` range (`run_trailing`), all of them without one."""
     with open(path) as f:
         trace = json.load(f)
     events = [e for e in trace.get("traceEvents", [])
               if e.get("ph") == "X" and "dur" in e]
+    cut = min((float(e["ts"]) for e in events
+               if e["name"] == TRAILING_MARK), default=float("inf"))
+    events = [e for e in events if float(e["ts"]) < cut]
     if not events:
         return [], 0.0
     window = (max(e["ts"] + e["dur"] for e in events)
@@ -245,13 +249,58 @@ def busy_fields(activity: Optional[dict], wall_ms: float) -> dict:
             "device_busy_share": activity["device_busy_ms"] / wall_ms}
 
 
-def profile_call(fn) -> dict:
+# The profiler has dropped the device records of a profile's last one or
+# two CUDA graph replays. So a profile runs its work TRAILING_CALLS more
+# times after what it measures, in a TRAILING_MARK range (`run_trailing`),
+# and every event from that range on is left out (`before_trailing`,
+# `trace_device_events`).
+TRAILING_CALLS = 2
+TRAILING_MARK = "profile_trailing"
+MAS_KERNEL = r"\bmas_\w+_kernel"  # the MAS kernels' names (csrc/mas.cu)
+
+
+def run_trailing(fn: Callable[[], object]) -> None:
+    """fn() TRAILING_CALLS times in a TRAILING_MARK range, inside a
+    profile and after the work it measures; fn ends in a device sync."""
+    from torch.profiler import record_function
+
+    with record_function(TRAILING_MARK):
+        for _ in range(TRAILING_CALLS):
+            fn()
+
+
+def before_trailing(events: Sequence) -> list:
+    """The profiler events (`prof.events()`) that start before the first
+    TRAILING_MARK range, all of them without one."""
+    cut = min((e.time_range.start for e in events
+               if e.name == TRAILING_MARK), default=float("inf"))
+    return [e for e in events if e.time_range.start < cut]
+
+
+def _rows(events, device_type, cpu: bool) -> List[Tuple[str, float, int]]:
+    """(name, self ms, count) of `events` of one device type, by name:
+    `key_averages` of a slice of a profile."""
+    ms: Dict[str, float] = collections.Counter()
+    count: Dict[str, int] = collections.Counter()
+    for e in events:
+        if e.device_type == device_type:
+            ms[e.name] += (e.self_cpu_time_total if cpu
+                           else e.self_device_time_total) / 1e3
+            count[e.name] += 1
+    return [(k, ms[k], count[k]) for k in ms]
+
+
+def profile_call(fn, trailing: Optional[Callable[[], object]] = None
+                 ) -> dict:
     """fn() under torch.profiler: wall time, device time as the sum of the
     device events' durations (`device_ms`) and as the union of their
     intervals (`device_busy_ms`; `device_busy_share` is it over the wall,
     `device_overlap_ms` the sum less the union), launches (of kernels, of
-    CUDA graphs, copies), MAS device ms, top device kernels and top host
-    ops. fn must end in a device sync."""
+    CUDA graphs, copies), MAS kernels run on the card and their device
+    ms, top device kernels and top host ops. fn must end in a device
+    sync. `trailing`, when given, runs after fn inside the profile
+    (`run_trailing`) and is left out: a profile of a CUDA graph replay
+    needs it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -262,17 +311,18 @@ def profile_call(fn) -> dict:
         t0 = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        if trailing is not None:
+            run_trailing(trailing)
+    kept = before_trailing(list(prof.events()))
     intervals = [(e.time_range.start, e.time_range.end,
-                  e.device_resource_id, e.name) for e in prof.events()
+                  e.device_resource_id, e.name) for e in kept
                  if e.device_type == DeviceType.CUDA]
     activity = device_activity(intervals)
-    events = prof.key_averages()
     # device rows are the kernels, copies and memsets themselves; an op's
     # own row repeats its kernels' time, so only these are read
-    dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
-           if e.device_type == DeviceType.CUDA]
-    host = [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in events
-            if e.device_type == DeviceType.CPU]
+    dev = _rows(kept, DeviceType.CUDA, cpu=False)
+    host = _rows(kept, DeviceType.CPU, cpu=True)
+    mas = [(k, ms, c) for k, ms, c in dev if re.search(MAS_KERNEL, k)]
 
     def top(rows):
         return [{"name": k[:80], "ms": ms, "calls": c}
@@ -285,18 +335,24 @@ def profile_call(fn) -> dict:
                 c for k, _, c in host if k.startswith("cudaGraphLaunch")),
             "cuda_memcpy_calls": sum(
                 c for k, _, c in host if k.startswith("cudaMemcpy")),
-            "mas_device_ms": sum(ms for k, ms, _ in dev
-                                 if re.search(r"\bmas_\w+_kernel", k)),
+            "mas_device_ms": sum(ms for _, ms, _ in mas),
+            "mas_kernels": {k: c for k, _, c in mas},
             "top_device": top(dev), "top_host": top(host)}
 
 
 def busy(fn, device) -> dict:
-    """`profile_call`'s device fields of fn on a card (fn ends in a sync
-    there); on the CPU fn runs once and each field is None."""
+    """`profile_call`'s device fields of fn on a card (each call ended by
+    a sync, trailing ones left out); on the CPU fn runs once and each
+    field is None."""
     if torch.device(device).type != "cuda":
         fn()
         return busy_fields(None, 0.0)
-    prof = profile_call(lambda: (fn(), torch.cuda.synchronize(device)))
+
+    def call():
+        fn()
+        torch.cuda.synchronize(device)
+
+    prof = profile_call(call, trailing=call)
     return {k: prof[k] for k in ("device_ms", "device_busy_ms",
                                  "device_busy_share", "device_overlap_ms")}
 
@@ -318,28 +374,31 @@ def calls_busy_ms(intervals: Sequence[Tuple[float, float, object, str]],
 def busy_ms(fn, device, calls: int = 5) -> Optional[List[float]]:
     """The card's own time of each of `calls` calls of fn: the union of
     the call's device activity intervals, which the host's dispatch does
-    not lengthen. One profile holds a first and a last call, not
-    reported, and the timed ones between them, each in a record_function
-    range and ended by a device sync (the profiler has dropped the device
-    records of the last call of a profile of CUDA graph replays). Raises
-    if the profiler saw no device activity in a timed call. On the CPU fn
-    runs once and the result is None."""
+    not lengthen. One profile holds a first call, not reported, the timed
+    ones, each in a record_function range and ended by a device sync, and
+    trailing ones that are left out (`run_trailing`). Raises if the
+    profiler saw no device activity in a timed call. On the CPU fn runs
+    once and the result is None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     if torch.device(device).type != "cuda":
         fn()
         return None
-    fn()
-    torch.cuda.synchronize(device)
+
+    def call():
+        fn()
+        torch.cuda.synchronize(device)
+
+    call()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for i in range(calls + 2):
+        for i in range(calls + 1):
             with record_function(f"{CALL_MARK}{i}"):
-                fn()
-                torch.cuda.synchronize(device)
+                call()
+        run_trailing(call)
     starts, intervals = {}, []
-    for e in prof.events():
+    for e in before_trailing(list(prof.events())):
         if e.name.startswith(CALL_MARK):
             # a call's host range; its span on the card is not work
             if e.device_type == DeviceType.CPU:
@@ -347,7 +406,7 @@ def busy_ms(fn, device, calls: int = 5) -> Optional[List[float]]:
         elif e.device_type == DeviceType.CUDA:
             intervals.append((e.time_range.start, e.time_range.end,
                               e.device_resource_id, e.name))
-    times = calls_busy_ms(intervals, sorted(starts.values()))[1:-1]
+    times = calls_busy_ms(intervals, sorted(starts.values()))[1:]
     if not all(times):
         raise RuntimeError(f"the profiler saw no device activity in a call "
                            f"of {fn}: {times}")

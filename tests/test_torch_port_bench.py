@@ -400,6 +400,59 @@ def test_busy_share_of_a_chrome_trace(tmp_path):
         "conv dgrad", "gemm", "copy/memset"}
 
 
+def test_a_chrome_trace_is_cut_at_its_trailing_range(tmp_path):
+    """A kernel that starts after the trace's first trailing range
+    (`timing.run_trailing`) is neither device time nor window, one before
+    it is."""
+    events = [
+        {"ph": "X", "cat": "cpu_op", "name": "aten::conv1d", "ts": 1000,
+         "dur": 100, "tid": 1},
+        {"ph": "X", "cat": "kernel", "name": "sm90_xmma_dgrad_x",
+         "ts": 1010, "dur": 60, "args": {"stream": 7}},
+        {"ph": "X", "cat": "user_annotation", "name": timing.TRAILING_MARK,
+         "ts": 1200, "dur": 400, "tid": 1},
+        {"ph": "X", "cat": "kernel", "name": "sm90_xmma_dgrad_x",
+         "ts": 1250, "dur": 60, "args": {"stream": 7}},
+    ]
+    path = tmp_path / "host_1.pt.trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    device, window_us = timing.trace_device_events(str(path))
+    assert [e["ts"] for e in device] == [1010.0]
+    assert window_us == 100
+
+
+def test_profile_call_leaves_out_its_trailing_calls():
+    """`profile_call(fn, trailing=g)` runs g TRAILING_CALLS times after
+    fn, in the trailing range, and reads no event of it: on the CPU, g's
+    ops are absent from the host rows, fn's are there."""
+    calls = []
+
+    def trailing():
+        calls.append(1)
+        torch.zeros(5).add_(1.0)
+
+    prof = timing.profile_call(lambda: torch.ones(3).mul_(2.0),
+                               trailing=trailing)
+    names = {row["name"] for row in prof["top_host"]}
+    assert len(calls) == timing.TRAILING_CALLS == 2
+    assert "aten::mul_" in names
+    assert not names & {"aten::add_", "aten::zeros", timing.TRAILING_MARK}
+    assert prof["mas_kernels"] == {} and prof["mas_device_ms"] == 0
+
+
+def test_before_trailing_keeps_the_events_that_start_before_it():
+    from types import SimpleNamespace
+
+    def event(name, start):
+        return SimpleNamespace(name=name,
+                               time_range=SimpleNamespace(start=start))
+
+    events = [event("a", 0), event(timing.TRAILING_MARK, 10),
+              event("b", 5), event("c", 12), event(timing.TRAILING_MARK, 20)]
+    assert [e.name for e in timing.before_trailing(events)] == ["a", "b"]
+    assert timing.before_trailing(events[:1]) == events[:1]
+
+
 @pytest.mark.parametrize("groups", [1, 4, 256])
 def test_a_conv_gradient_costs_its_forward_s_flops(groups):
     """torch's own formula counts a grouped conv's weight gradient

@@ -75,7 +75,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(imported):
                  "eval_checkpoint", "eval_vc", "preprocess", "make_corpus",
                  "parallel", "parallel.mesh", "parallel.tp",
                  "parallel.dryrun", "infer.export", "export_serving",
-                 "infer.programs", "infer.graphs",
+                 "infer.programs", "infer.graphs", "train.graphs",
                  "dsp", "dsp.pqmf", "dsp.stft", "dsp.mel", "overfit_check",
                  "make_tiny_dataset", "make_filelists", "analyze_phase",
                  "tb_extract", "utils.timing", "bench", "bench_train",

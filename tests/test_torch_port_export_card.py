@@ -2,7 +2,8 @@
 CPU and served on the card, one traced on the card, each held to the
 live module on the card at a seed and at the same frame bucket (the
 card-traced one bit for bit; the CPU-traced one within one int16 step, as
-the programs met the card's kernels only after the move). Flagship
+the programs met the card's kernels only after the move); and the
+artifact's graph replays bit for bit to its eager calls. Flagship
 config at the tiny width of torch_port_data.py, random weights from a
 seed. Needs a CUDA device and skips without one; imports no JAX:
 
@@ -72,3 +73,32 @@ def test_artifact_on_the_card_equals_the_live_module(artifacts, traced_on):
             assert err <= INT16_STEP + 1e-9
         again, _ = art.synthesize(text, seed=7)
         np.testing.assert_array_equal(again, got)
+
+
+@pytest.mark.cuda
+def test_artifact_replays_bit_equal_to_its_eager_calls(artifacts):
+    """The artifact's requests run its probe and infer programs as CUDA
+    graphs ("probe", TB) and ("infer", TB, FB), captured once; each is bit
+    for bit the same request with the programs called directly and the
+    knobs on the CPU, as the artifact served before its graph cache."""
+    from mb_istft_vits_torch.infer.export import _scalar
+
+    _, served = artifacts
+    art = served["cuda"]
+    for i, text in enumerate(TEXTS):
+        got, tg = art.synthesize(text, seed=i)
+        art._run = lambda key, program, *a: program(art.params, *a)
+        art._knob = _scalar
+        try:
+            eager, te = art.synthesize(text, seed=i)
+        finally:
+            del art._run, art._knob
+        assert tg["frame_bucket"] == te["frame_bucket"]
+        np.testing.assert_array_equal(got, eager)
+    names = {k[0] for k in art.graphs.keys()}
+    assert names == {"probe", "infer"}
+    captures = art.graphs.captures
+    replays = art.graphs.replays
+    art.synthesize(TEXTS[0], seed=0)
+    assert art.graphs.captures == captures
+    assert art.graphs.replays == replays + 2

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from mb_istft_vits_torch.infer import programs
+from mb_istft_vits_torch.infer.graphs import KnobCache
 from mb_istft_vits_torch.infer.synthesis import SynthesisModule
 from tests.torch_port_data import MS_CONFIG, write_tiny_config
 
@@ -354,3 +355,16 @@ def test_graph_cache_refuses_a_python_number_input():
     with pytest.raises(TypeError, match="tensor or None"):
         GraphCache().run(("p",), lambda a: a, (1.0,), torch.device("cpu"))
 
+
+
+def test_a_knob_is_one_float32_scalar_per_value_and_device():
+    """Both serving classes' knob cache: the same tensor for a value
+    again, a new one for another value or device, cleared past LIMIT."""
+    knobs = KnobCache()
+    a = knobs(0.667, torch.device("cpu"))
+    assert a.dim() == 0 and a.dtype == torch.float32 and float(a) == \
+        pytest.approx(0.667)
+    assert knobs(0.667, "cpu") is a and knobs(0.5, "cpu") is not a
+    for i in range(KnobCache.LIMIT + 1):
+        knobs(float(i), "cpu")
+    assert knobs(0.667, "cpu") is not a

@@ -83,7 +83,8 @@ RENAMED = {
     "train.step.leaf_adamw": "an optax transform; `make_optimizer`",
     "train.step.make_optimizers": "`make_optimizer`, once a net",
     "train.step.make_train_step":
-        "two jitted programs; the port's eager step is `train_step`",
+        "two jitted programs; the port's `train_step` runs one CUDA graph "
+        "per batch signature (`train.graphs`)",
     "train.step.retime_opt_state": "`checkpoint.snap_to_epoch`",
 }
 
