@@ -83,8 +83,9 @@ Phases, one JSON line each:
            on train_data's pair (-n 4 --tts), eval_metrics, make_corpus and
            eval_vc (12-speaker config, random weights, 2 pairs),
            preprocess; exit codes 0 and finite scores
-  ddp      data-parallel training (eager: a data-parallel step is not
-           captured): two ranks spawned on cuda:0 over gloo
+  ddp      data-parallel training through the stage graphs (a rank's step
+           is 3 CUDA graphs with its 2 all-reduces run eagerly between
+           them): two ranks spawned on cuda:0 over gloo
            (tests/torch_port_dist_worker.py), the flagship at full width, 8
            rows a rank (16 in all): a step on seeded global draws (lr 10,
            eps 10, every dropout off) at the whole-step bars of the CPU
@@ -92,20 +93,29 @@ Phases, one JSON line each:
            step on the 16 rows, and with cuDNN's deterministic algorithms
            against the single-process sum of the two 8-row halves (cuDNN
            picks other algorithms for 8 rows than for 16: the 16-row
-           step's distance is reported); then 3 timed steps at the
-           config's lr; checks the ranks' weights bit-equal after every
-           step, equal metrics, one MAS launch a rank a step; records each
-           rank's step ms (one card shared: not a scaling number), the ms
-           of an all-reduce of one buffer of every weight's bytes, outside
-           the steps; the training CLI under
+           step's distance is reported); then 4 timed steps at the
+           config's lr (2 eager warm-ups, the capture, a replay); checks
+           the ranks' weights bit-equal after every step, equal metrics,
+           one MAS launch a rank a step; then a replayed step against the
+           eager data-parallel step from the same weights and draws, bit
+           for bit under cuDNN's and torch's deterministic algorithms and
+           within the train_graphs phase's bars under the default ones;
+           2 queued steps of each route timed with CUDA events and
+           one warm step of each profiled: 3 graph launches and fewer than
+           20 kernel launches a replayed rank step, its MAS kernels seen
+           on the card; records each rank's step ms (one card shared: not
+           a scaling number), the ms of an all-reduce of one buffer of
+           every weight's bytes, outside the steps; the training CLI under
            `python -m torch.distributed.run --nproc_per_node 1` (NCCL,
-           world 1): exit 0, a pair, step 1 equal to the plain CLI's; and
-           the error NCCL gives two ranks on one card
-  tp       (eager, as ddp) parallel.dryrun.dryrun_multichip(2) (DDP, two ranks sharing the
-           card over gloo), then one step of the 2-D sharding: two ranks on
-           cuda:0 over gloo as a (1 x 2) data x model mesh, FSDP2, the
-           dryrun's tiny model, held to the single-process step; the
-           sharded weights and moments counted as in the CPU tests
+           world 1): exit 0, a pair, a capture of 3 stages logged, step 1
+           equal to the plain CLI's; and the error NCCL gives two ranks
+           on one card
+  tp       parallel.dryrun.dryrun_multichip(2) (two data-parallel ranks
+           sharing the card over gloo, through the stage graphs), then one
+           step of the 2-D sharding, eager: two ranks on cuda:0 over gloo
+           as a (1 x 2) data x model mesh, FSDP2, the dryrun's tiny model,
+           held to the single-process step; the sharded weights and
+           moments counted as in the CPU tests
   overfit  the JAX package's overfit gate (scripts/overfit_check.py) through
            the port's overfit_check.run in this process: the tiny
            multi-band config, 150 steps on one seeded batch; checks the
@@ -201,8 +211,9 @@ line (launch counts from the forward, train, train_sdp, train_ms, eval_ms,
 train_graphs, train_cli, train_data, ddp, tp and overfit run, a graph
 replay counting the launches of its capture, the spawned ranks' own counts
 added, and serving,
-times, bounds; `launches_by_path` beside them: the main path's and each
-measurement tool's of the bench phase, not added to `launches`;
+times, bounds; `launches_by_path` beside them: the main path's, those of
+it in the ddp and tp ranks' step-graph replays (`main.ddp_replays`), and
+each measurement tool's of the bench phase, not added to `launches`;
 `launches` counts the first
 kernel of a port and `launches_by_kernel` each of its kernels: mas_bwd is
 mas_bwd_kernel and mas_path_kernel), the card's name and power limit as
@@ -240,6 +251,7 @@ from mb_istft_vits_torch.bench_mas import bounds_ms  # noqa: E402
 from mb_istft_vits_torch.infer.graphs import WARMUP_ITERS  # noqa: E402
 from mb_istft_vits_torch.utils.timing import (  # noqa: E402
     kernel_time_ms,
+    nvidia_smi,
     profile_call,
     time_ms,
 )
@@ -1172,10 +1184,15 @@ def train_batch(config, b, seed, texts=None):
     return {k: v.cuda() for k, v in batch.items()}
 
 
-def mas_launches():
-    from mb_istft_vits_torch.ops import mas
+def _dist_worker():
+    """tests/torch_port_dist_worker.py: the data-parallel ranks, and the
+    step helpers this script shares with them."""
+    tests = os.path.join(REPO, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_port_dist_worker
 
-    return mas.launch_counts["mas_fused"] + mas.launch_counts["mas_fwd"]
+    return torch_port_dist_worker
 
 
 def run_train_steps(state, batch, timed_steps, after_first=None):
@@ -1195,20 +1212,23 @@ def run_train_steps(state, batch, timed_steps, after_first=None):
 
     import torch
 
+    from mb_istft_vits_torch import bench_train
     from mb_istft_vits_torch.models import synthesizer
     from mb_istft_vits_torch.ops import mas
     from mb_istft_vits_torch.train import step as tstep
 
+    w = _dist_worker()
+
     def step(fn=tstep.train_step):
-        n0 = mas_launches()
-        before = graph_counts(state)
+        n0 = w.mas_launches()
+        before = w.graph_counts(state)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = {k: float(v) for k, v in fn(state, batch).items()}
         torch.cuda.synchronize()
         return {"host_ms": (time.perf_counter() - t0) * 1e3,
-                "mas_launches": mas_launches() - n0, "metrics": metrics,
-                "route": step_route(before, graph_counts(state))}
+                "mas_launches": w.mas_launches() - n0, "metrics": metrics,
+                "route": w.route(before, w.graph_counts(state))}
 
     torch.cuda.reset_peak_memory_stats()
     first = step()
@@ -1216,18 +1236,7 @@ def run_train_steps(state, batch, timed_steps, after_first=None):
     steps = [step() for _ in range(timed_steps - 1)]
 
     # the last timed step: CUDA events around its halves, MAS recorded
-    marks, mas_io = [], {}
-
-    def timed(fn):
-        def run(*args, **kwargs):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            marks.append((start, end))
-            return out
-        return run
+    mas_io = {}
 
     def recorded(fn):
         def run(neg_cent, mask, **kwargs):
@@ -1237,89 +1246,24 @@ def run_train_steps(state, batch, timed_steps, after_first=None):
         return run
 
     begin = torch.cuda.Event(enable_timing=True)
-    with mock.patch.object(tstep, "d_step", timed(tstep.d_step)), \
-            mock.patch.object(tstep, "g_step", timed(tstep.g_step)), \
+    with bench_train.marked_halves() as marks, \
             mock.patch.object(synthesizer, "maximum_path",
                               recorded(synthesizer.maximum_path)):
         begin.record()
         steps.append(step(tstep.train_step_eager))
-    (d0, d1), (g0, g1) = marks
-    split = {"prep_and_forward_ms": begin.elapsed_time(d0),
-             "d_step_ms": d0.elapsed_time(d1),
-             "g_step_ms": g0.elapsed_time(g1)}
+    split = bench_train.halves_ms(begin, marks)
+    split["prep_and_forward_ms"] = split.pop("forward_ms")
     peak = torch.cuda.max_memory_allocated()
     plain = mas.maximum_path(mas_io["neg_cent"], mas_io["mask"], False)
 
-    profile, profiled_mas = profile_replay(state, batch)
+    profile = w.profiled(state, batch)
     steady = [s["host_ms"] for s in steps if s["route"] == "replay"]
     return {"first": first, "steps": steps, "first_check": first_check,
             "split": split, "peak": peak, "steady": steady,
             "mas_shape": list(mas_io["neg_cent"].shape),
             "attn_equals_plain": torch.equal(mas_io["path"], plain),
-            "profile": profile, "profiled_mas": profiled_mas,
-            "graphs": graph_report(state)}
-
-
-def graph_counts(state):
-    g = state.graphs
-    return (0, 0) if g is None else (g.captures, g.replays)
-
-
-def step_route(before, after):
-    """How a step ran, from the graphs' (captures, replays) around it."""
-    if after[0] > before[0]:
-        return "capture"
-    return "replay" if after[1] > before[1] else "eager"
-
-
-def graph_report(state):
-    """The state's step graphs: signatures, captures, replays, eager
-    warm-up steps, capture seconds and the pool's bytes after each
-    capture and now."""
-    g = state.graphs
-    if g is None:
-        return None
-    return {"signatures": len(g.keys()), "captures": g.captures,
-            "replays": g.replays, "eager_steps": g.eager_steps,
-            "capture_seconds": list(g.capture_seconds.values()),
-            "pool_bytes_at_capture": list(g.pool_bytes_at_capture.values()),
-            "pool_bytes": g.pool_bytes()}
-
-
-def profile_replay(state, batch, fn=None):
-    """One step (`train_step` unless `fn`) under profile_call, with
-    trailing ones cut from it when it is `train_step` (the profiler drops
-    the device records of a profile's last graph replays); (profile, the
-    profiled step's MAS launches). The profile's `mas_counted` holds what
-    each MAS wrapper counted in that step (for a replay, its capture's
-    counts: ops/mas.py's replay rule), and `mas_kernels_seen` whether the
-    profiler saw each of those kernels run on the card as many times."""
-    import collections
-
-    import torch
-
-    from mb_istft_vits_torch.ops import mas
-    from mb_istft_vits_torch.train import step as tstep
-
-    fn = fn or tstep.train_step
-    n = []
-
-    def one():
-        n.append(dict(mas.launch_counts))
-        fn(state, batch)
-        torch.cuda.synchronize()
-        n.append(dict(mas.launch_counts))
-
-    trailing = (lambda: (fn(state, batch), torch.cuda.synchronize())
-                if fn is tstep.train_step else None)
-    profile = profile_call(one, trailing=trailing)
-    counted = {k: n[1][k] - n[0][k] for k in n[0] if n[1][k] != n[0][k]}
-    seen = collections.Counter()
-    for name, calls in profile["mas_kernels"].items():
-        seen[re.search(r"\b(mas_\w+?)_kernel", name).group(1)] += calls
-    profile["mas_counted"] = counted
-    profile["mas_kernels_seen"] = dict(seen) == counted
-    return profile, sum(counted.get(k, 0) for k in ("mas_fused", "mas_fwd"))
+            "profile": profile, "profiled_mas": profile["mas_launches"],
+            "graphs": w.graph_report(state)}
 
 
 def train_report(run, batch, config):
@@ -1561,206 +1505,30 @@ GRAPH_G_NOISE = 3.0
 GRAPH_EAGER_REPEATS = 2  # eager repeats that measure that distance
 
 
-def _state_leaves(state):
-    return {f"{net}.{k}": v for net, m in (("g", state.net_g),
-                                           ("d", state.net_d))
-            for k, v in m.state_dict().items()}
+def _within_bars(d):
+    """A step's `distance` from the eager one within the whole-step bars:
+    loss scalars relative, D leaves max-abs, each G leaf's update relative
+    in L2, over at least 100 G leaves."""
+    return (d["loss_rel"] <= STEP_LOSS_REL and d["d_max_abs"] <= STEP_D_ATOL
+            and d["g_update_rel_l2"] <= STEP_G_REL
+            and d["g_leaves_compared"] >= 100)
 
 
-def _reset_in_place(state, init):
-    """`state` back to the weights `init` and to zero AdamW moments and
-    counts, each written into the tensor the step graph reads."""
-    import torch
-
-    with torch.no_grad():
-        for k, v in _state_leaves(state).items():
-            v.copy_(init[k])
-        for optim in (state.optim_g, state.optim_d):
-            for st in optim.state.values():
-                for v in st.values():
-                    v.zero_()
-
-
-def _hold(gm, em, gs, es, init, lr):
-    """A replayed step (metrics gm, state gs) against the eager body's
-    (em, es) from the same weights `init`, draws and dropout seed, at the
-    whole-step bars: loss scalars relative, D leaves max-abs, each G
-    leaf's update (less its weight decay at `lr`) relative in L2, the
-    leaves without a gradient skipped; and whether every metric and leaf
-    is bit-equal. Returns (within the bars, bit-equal, the worst of
-    each, and `g_update_rel_l2_all`: the G updates' distance as one
-    vector of every compared leaf)."""
-    import torch
-
-    keep = 1.0 - lr * 0.01
-    loss_rel = max(abs(float(gm[k]) - float(v)) / max(abs(float(v)), 1e-12)
-                   for k, v in em.items()
-                   if k.startswith(("loss/", "grad_norm")))
-    gl, el = _state_leaves(gs), _state_leaves(es)
-    d_err = max(float((gl[k] - v).abs().max()) for k, v in el.items()
-                if k.startswith("d."))
-    g_rel, worst, compared = 0.0, None, 0
-    all_diff = all_size = 0.0  # squared norms over every compared leaf
-    for k, v in el.items():
-        if not k.startswith("g."):
-            continue
-        p0 = init[k].double()
-        upd = v.double() - keep * p0
-        size = float(upd.norm())
-        if size < 1e-6:
-            continue
-        diff = float((gl[k].double() - keep * p0 - upd).norm())
-        all_diff, all_size = all_diff + diff ** 2, all_size + size ** 2
-        if diff / size > g_rel:
-            g_rel, worst = diff / size, k
-        compared += 1
-    unequal = sorted(((float((gl[k] - v).abs().max()), k)
-                      for k, v in el.items() if not torch.equal(gl[k], v)),
-                     reverse=True)
-    bit_equal = (all(float(gm[k]) == float(v) for k, v in em.items())
-                 and not unequal)
-    ok = (loss_rel <= STEP_LOSS_REL and d_err <= STEP_D_ATOL
-          and g_rel <= STEP_G_REL and compared >= 100)
-    return ok, bit_equal, {"loss_rel": loss_rel, "d_max_abs": d_err,
-                           "g_update_rel_l2": g_rel, "g_worst_leaf": worst,
-                           "g_update_rel_l2_all": (all_diff / all_size) ** 0.5
-                           if all_size else 0.0,
-                           "g_leaves_compared": compared,
-                           "unequal_leaves": len(unequal),
-                           "most_unequal": unequal[:4]}
-
-
-def _deterministic(setting):
-    """cuDNN set as `setting` and, when it asks for determinism, torch's
-    deterministic algorithms as well (warnings only where an op has
-    none)."""
-    import contextlib
-
-    import torch
-
-    stack = contextlib.ExitStack()
-    stack.enter_context(_cudnn(setting))
-    if setting.get("deterministic"):
-        before = (torch.are_deterministic_algorithms_enabled(),
-                  torch.is_deterministic_algorithms_warn_only_enabled())
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        stack.callback(lambda: torch.use_deterministic_algorithms(
-            before[0], warn_only=before[1]))
-    return stack
-
-
-def _replay_vs_eager(base, batch, setting):
-    """One replayed step against the eager body from the same weights,
-    under the cuDNN setting `setting` (the graph captured under it): two
-    copies of the fresh state `base` (at GRAPH_CMP_TRAIN); the graph one warms up and
-    captures (WARMUP_ITERS + 1 steps), is reset in place to the initial
-    weights and fresh moments, and both take step GRAPH_CMP_STEP (the
-    draws of that step, from each state's generator: draw_step's for the
-    graph, the model's own for the eager body; the same dropout seed).
-    Under cuDNN's default algorithms GRAPH_EAGER_REPEATS more copies take
-    the same eager step again (`eager_repeats`): how far the eager step
-    is from itself there."""
-    import copy
-
-    import torch
-
-    from mb_istft_vits_torch.train import step as tstep
-
-    t0 = time.perf_counter()
-    gs, es = copy.deepcopy(base), copy.deepcopy(base)
-    with _deterministic(setting):
-        init = {k: v.detach().clone() for k, v in _state_leaves(gs).items()}
-        for _ in range(WARMUP_ITERS + 1):
-            tstep.train_step(gs, batch)
-        _reset_in_place(gs, init)
-        gs.step = es.step = GRAPH_CMP_STEP
-        n0 = mas_launches()
-        torch.cuda.manual_seed(11)
-        gm = tstep.train_step(gs, batch)
-        torch.cuda.synchronize()
-        replay_mas = mas_launches() - n0
-        torch.cuda.manual_seed(11)
-        em = tstep.train_step_eager(es, batch)
-        torch.cuda.synchronize()
-        repeats = []
-        for _ in range(0 if setting.get("deterministic")
-                       else GRAPH_EAGER_REPEATS):
-            # the eager step again: how far eager is from itself
-            rs = copy.deepcopy(base)
-            rs.step = GRAPH_CMP_STEP
-            torch.cuda.manual_seed(11)
-            rm = tstep.train_step_eager(rs, batch)
-            ok, bit_equal, worst = _hold(rm, em, rs, es, init, GRAPH_CMP_LR)
-            repeats.append({"within_bars": ok, "bit_equal": bit_equal,
-                            **worst})
-            del rs
-    ok, bit_equal, worst = _hold(gm, em, gs, es, init, GRAPH_CMP_LR)
-    lr_read = float(gs.optim_g.param_groups[0]["lr"])
-    out = {"cudnn": setting, "within_bars": ok, "bit_equal": bit_equal,
-           **worst, "lr_in_replayed_update": lr_read,
-           "captures": gs.graphs.captures, "replays": gs.graphs.replays,
-           "replayed_step_mas_launches": replay_mas,
-           "eager_repeats": repeats,
-           "seconds": time.perf_counter() - t0,
-           "metrics_finite": all(math.isfinite(float(v))
-                                 for m in (gm, em) for v in m.values())}
-    del gs, es, init
-    torch.cuda.empty_cache()
-    return out
-
-
-def _timed_routes(state, batch, steps):
-    """The same state stepped through its graph and eagerly: synced steps
-    alternating (host ms each), then `steps` queued steps of each timed
-    with CUDA events (ms a step), a profiled step of each (launches, busy
-    share; the replay's with a trailing one cut) and each route's MAS
-    launches a step."""
-    import torch
-
-    from mb_istft_vits_torch.train import step as tstep
-
-    routes = {"graph": tstep.train_step, "eager": tstep.train_step_eager}
-    host = {k: [] for k in routes}
-    mas_per_step = {k: [] for k in routes}
-    finite = True
-    for _ in range(steps):
-        for name, fn in routes.items():
-            n0 = mas_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            metrics = fn(state, batch)
-            finite &= all(math.isfinite(float(v)) for v in metrics.values())
-            host[name].append((time.perf_counter() - t0) * 1e3)
-            mas_per_step[name].append(mas_launches() - n0)
-    events = {}
-    for name, fn in routes.items():
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(steps):
-            fn(state, batch)
-        end.record()
-        torch.cuda.synchronize()
-        events[name] = start.elapsed_time(end) / steps
-    profiles = {name: profile_replay(state, batch, fn)
-                for name, fn in routes.items()}
-    out = {}
-    for name in routes:
-        prof, mas_profiled = profiles[name]
-        out[name] = {
-            "step_ms_host": host[name],
-            "step_ms_host_median": statistics.median(host[name]),
-            "step_ms_events": events[name],
-            "launches": _launches(prof),
-            "device_ms": prof["device_ms"],
-            "device_busy_share": prof["device_busy_share"],
-            "wall_ms_profiled": prof["wall_ms_profiled"],
-            "mas_launches_per_step": mas_per_step[name] + [mas_profiled],
-            "mas_kernels_profiled": prof["mas_kernels"],
-            "mas_kernels_seen": prof["mas_kernels_seen"]}
-    out["metrics_finite"] = finite
-    return out
+def _hold_replay(c):
+    """A `replay_vs_eager` under cuDNN's default algorithms: the losses and
+    D leaves within their bars, and the G updates as one vector within the
+    G bar or GRAPH_G_NOISE times the farther eager repeat's distance, the
+    larger (`g_update_rel_l2_all_limit`, written into `c`), over at least
+    100 G leaves."""
+    r = c["replay"]
+    c["g_update_rel_l2_all_limit"] = max([STEP_G_REL] + [
+        GRAPH_G_NOISE * rep["g_update_rel_l2_all"]
+        for rep in c["eager_repeats"]])
+    return {"losses_and_d": r["loss_rel"] <= STEP_LOSS_REL
+            and r["d_max_abs"] <= STEP_D_ATOL,
+            "g_updates": r["g_update_rel_l2_all"]
+            <= c["g_update_rel_l2_all_limit"]
+            and r["g_leaves_compared"] >= 100}
 
 
 def phase_train_graphs(root):
@@ -1769,7 +1537,8 @@ def phase_train_graphs(root):
     flagship at batch 16 in f32 and with fp16_run, the SDP model and the
     12-speaker model (the train phases' batches):
     - a replayed step against the eager body from the same weights, draws
-      and dropout seed (_replay_vs_eager): bit for bit under cuDNN's and
+      and dropout seed (the dist worker's `replay_vs_eager`, each setting
+      on its own copy of the state): bit for bit under cuDNN's and
       torch's deterministic algorithms; under the default ones the losses
       and D leaves at the whole-step bars, and the G updates as one
       vector within the G bar or GRAPH_G_NOISE times the eager step's
@@ -1780,7 +1549,7 @@ def phase_train_graphs(root):
     - at the config's own lr, the graph's warm-up and capture (seconds,
       pool bytes), then step ms of graphs and eager (host-synced and CUDA
       events), launches a warm step, busy share and MAS launches a step
-      (_timed_routes);
+      (the dist worker's `timed_routes`);
     - for the flagship in f32, a second bucket (the batch cut to
       GRAPH_CROP_FRAMES frames) captured once in the same pool, both
       buckets replayed in turns with no new capture, a checkpoint
@@ -1797,6 +1566,8 @@ def phase_train_graphs(root):
     from mb_istft_vits_torch.ops import mas
     from mb_istft_vits_torch.train import checkpoint
     from mb_istft_vits_torch.train import step as tstep
+
+    w = _dist_worker()
 
     def batch16(path):
         cfg = Config.from_json(path)
@@ -1821,16 +1592,25 @@ def phase_train_graphs(root):
             config.train, **GRAPH_CMP_TRAIN))
         base = tstep.create_train_state(cmp_cfg, torch.device("cuda"),
                                         seed=3)
-        compared = [_replay_vs_eager(base, batch, setting)
-                    for setting in GRAPH_COMPARE]
+        init = tuple({k: v.detach().clone() for k, v in
+                      net.state_dict().items()}
+                     for net in (base.net_g, base.net_d))
+        compared = []
+        for setting in GRAPH_COMPARE:
+            t0 = time.perf_counter()
+            gs = copy.deepcopy(base)
+            compared.append(w.replay_vs_eager(
+                gs, batch, init, cmp_cfg, setting,
+                0 if setting.get("deterministic") else GRAPH_EAGER_REPEATS,
+                step=GRAPH_CMP_STEP))
+            compared[-1]["seconds"] = time.perf_counter() - t0
+            del gs
+            torch.cuda.empty_cache()
         # the same weights at the config's own lr and schedule
-        state = copy.deepcopy(base)
-        state.cfg = config
-        for optim in (state.optim_g, state.optim_d):
-            for group in optim.param_groups:
-                group["eps"] = config.train.eps
+        state = base
+        w.reset(state, init, config)
         tstep.write_lr(state)
-        del base
+        del base, init
         warm = []
         for _ in range(WARMUP_ITERS + 1):
             torch.cuda.synchronize()
@@ -1839,10 +1619,10 @@ def phase_train_graphs(root):
             torch.cuda.synchronize()
             warm.append((time.perf_counter() - t0) * 1e3)
         t0 = time.perf_counter()
-        timed = _timed_routes(state, batch, GRAPH_STEPS)
+        timed = w.timed_routes(state, batch, GRAPH_STEPS, GRAPH_STEPS)
         timed["seconds"] = time.perf_counter() - t0
         row = {"compared": compared, "warmup_and_capture_ms": warm,
-               "graphs": graph_report(state), **timed}
+               "graphs": w.graph_report(state), **timed}
         row["graph_over_eager_events"] = (timed["graph"]["step_ms_events"]
                                           / timed["eager"]["step_ms_events"])
         default, deterministic = compared
@@ -1854,18 +1634,13 @@ def phase_train_graphs(root):
         # or GRAPH_G_NOISE times the farther repeat's distance, the larger
         # (bf16's repeats lie 1.5-1.8e-4 from eager, or bit-equal); every
         # leaf is held bit for bit under the deterministic algorithms
-        g_limit = max([STEP_G_REL] + [
-            GRAPH_G_NOISE * r["g_update_rel_l2_all"]
-            for r in default["eager_repeats"]])
-        default["g_update_rel_l2_all_limit"] = g_limit
-        checks[f"{name}_losses_and_d_within_bars"] = (
-            default["loss_rel"] <= STEP_LOSS_REL
-            and default["d_max_abs"] <= STEP_D_ATOL)
-        checks[f"{name}_g_updates_within_bar_or_eager_noise"] = (
-            default["g_update_rel_l2_all"] <= g_limit
-            and default["g_leaves_compared"] >= 100)
+        held = _hold_replay(default)
+        checks[f"{name}_losses_and_d_within_bars"] = held["losses_and_d"]
+        checks[f"{name}_g_updates_within_bar_or_eager_noise"] = \
+            held["g_updates"]
         checks[f"{name}_bit_equal_deterministic"] = (
-            deterministic["bit_equal"] and deterministic["within_bars"])
+            deterministic["replay"]["bit_equal"]
+            and _within_bars(deterministic["replay"]))
         checks[f"{name}_decayed_lr_replayed"] = all(
             c["lr_in_replayed_update"] == GRAPH_CMP_LR for c in compared)
         checks[f"{name}_one_graph_launch_a_step"] = \
@@ -1873,12 +1648,13 @@ def phase_train_graphs(root):
         checks[f"{name}_mas_once_a_step"] = all(
             n == 1 for r in ("graph", "eager")
             for n in timed[r]["mas_launches_per_step"]) and all(
-            c["replayed_step_mas_launches"] == 1 for c in compared)
+            c["replay_mas_launches"] == 1 for c in compared)
         # the replay rule's counts against the kernels the card ran
         checks[f"{name}_replayed_mas_kernels_seen"] = \
             timed["graph"]["mas_kernels_seen"]
         checks[f"{name}_one_capture"] = state.graphs.captures == 1 and all(
-            c["captures"] == 1 for c in compared)
+            c["captures"] == 1 and c["replay_route"] == "replay"
+            for c in compared)
         checks[f"{name}_metrics_finite"] = timed["metrics_finite"] and all(
             c["metrics_finite"] for c in compared)
 
@@ -1900,7 +1676,7 @@ def phase_train_graphs(root):
                 "frames": GRAPH_CROP_FRAMES,
                 "pool_bytes_one_graph": pool_one,
                 "pool_bytes_two_graphs": state.graphs.pool_bytes(),
-                "graphs": graph_report(state)}
+                "graphs": w.graph_report(state)}
             checks["two_buckets_two_captures"] = (
                 captures == 2 == state.graphs.captures
                 and len(state.graphs) == 2)
@@ -1914,7 +1690,7 @@ def phase_train_graphs(root):
             again = [tstep.train_step(state, batch)
                      for _ in range(WARMUP_ITERS + 2)]
             row["resume"] = {"step": resumed, "graphs_dropped": dropped,
-                             "graphs": graph_report(state)}
+                             "graphs": w.graph_report(state)}
             checks["resume_recaptures"] = (
                 dropped and state.graphs.captures == 3
                 and all(math.isfinite(float(v)) for m in again
@@ -1926,11 +1702,11 @@ def phase_train_graphs(root):
             two = [tstep.train_step(state, batch)
                    for _ in range(WARMUP_ITERS + 2)]
             launched = {k: mas.launch_counts[k] - n0[k] for k in n0}
-            prof_two, _ = profile_replay(state, batch)
+            prof_two = w.profiled(state, batch)
             row["two_pass"] = {"steps": len(two), "launches": launched,
                                "profiled": prof_two["mas_counted"],
                                "profiled_kernels": prof_two["mas_kernels"],
-                               "graphs": graph_report(state)}
+                               "graphs": w.graph_report(state)}
             checks["two_pass_replayed"] = (
                 state.graphs.captures == 4
                 and launched == {"mas_fused": 0, "mas_fwd": len(two),
@@ -2201,6 +1977,7 @@ def run_feed(state, batcher, epoch, feeder=None):
     from mb_istft_vits_torch.train import loop
     from mb_istft_vits_torch.train import step as tstep
 
+    w = _dist_worker()
     steps = []
     it = loop._batches(batcher, epoch, epoch + 1, torch.device("cuda"),
                        feeder)
@@ -2211,16 +1988,16 @@ def run_feed(state, batcher, epoch, feeder=None):
             break
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        n0 = mas_launches()
-        before = graph_counts(state)
+        n0 = w.mas_launches()
+        before = w.graph_counts(state)
         metrics = {k: float(v) for k, v in
                    tstep.train_step(state, batch).items()}
         torch.cuda.synchronize()
         steps.append({
             "wait_ms": (t1 - t0) * 1e3,
             "host_ms": (time.perf_counter() - t1) * 1e3,
-            "route": step_route(before, graph_counts(state)),
-            "mas_launches": mas_launches() - n0,
+            "route": w.route(before, w.graph_counts(state)),
+            "mas_launches": w.mas_launches() - n0,
             "h2d_bytes": (4 * len(batch["x"]) if feeder is not None
                           else sum(v.nbytes for v in batch.values())),
             "t_y": int(batch["spec_lengths"].max()),
@@ -2315,9 +2092,11 @@ def phase_train_data(root):
     last = len(pcm.buckets) - 1
     probe = {k: torch.from_numpy(v).cuda() for k, v in
              pcm.make_batch(last, pcm.buckets[last][:batch_size]).items()}
-    before = graph_counts(state)
-    profile, profiled_mas = profile_replay(state, probe)
-    after = graph_counts(state)
+    w = _dist_worker()
+    before = w.graph_counts(state)
+    profile = w.profiled(state, probe)
+    profiled_mas = profile["mas_launches"]
+    after = w.graph_counts(state)
 
     rows = [r[0] for r in host.dataset.rows]
     cached = [os.path.exists(os.path.splitext(p)[0] + ".spec.npy")
@@ -2387,7 +2166,7 @@ def phase_train_data(root):
          loss_g_mel=[s["metrics"]["loss/g/mel"] for s in all_steps],
          first_nonfinite=_first_nonfinite(feeds),
          host_spec_vs_card=spec_gaps, peak_memory_bytes=peak,
-         graphs=graph_report(state),
+         graphs=w.graph_report(state),
          profile=profile, device_busy_share=profile["device_busy_share"],
          device_overlap_ms=profile["device_overlap_ms"], checks=checks)
     failed = [k for k, v in checks.items() if not v]
@@ -2601,8 +2380,11 @@ def phase_serve_bf16():
 
 
 DDP_ROWS = 8  # rows a rank: two ranks make the train phase's batch of 16
-DDP_STEPS = 3  # timed steps after the compared one
+# timed steps after the compared ones: the warm-ups, the capture, a replay
+DDP_STEPS = 4
 DDP_SEED = 3  # the weights (the worker's seeded_state)
+DDP_ROUTE_STEPS = 2  # queued steps timed in each of the stage graphs and eager
+DDP_KERNEL_LAUNCHES = 20  # a warm replayed rank step launches fewer kernels
 # whole-step bars of the CPU parity tests (tests/test_torch_port_ddp.py):
 # lr 10 and eps 10 make the first AdamW update a smooth function of the
 # gradient, so the updated weights hold the gradients
@@ -2619,19 +2401,16 @@ DDP_COMPARE = ({"enabled": False}, {"enabled": True, "deterministic": True})
 # launches of the MAS kernels in the ranks this script spawns (each child
 # counts its own), added to the main path's counts
 CHILD_LAUNCHES = {}
+# those of them in the data-parallel ranks' replays of the step graphs
+REPLAYED_LAUNCHES = {}
 
 
 def _add_child_launches(ranks):
     for r in ranks:
         for k, v in r.get("launch_counts", {}).items():
             CHILD_LAUNCHES[k] = CHILD_LAUNCHES.get(k, 0) + v
-
-
-def _dist_worker():
-    sys.path.insert(0, os.path.join(REPO, "tests"))
-    import torch_port_dist_worker
-
-    return torch_port_dist_worker
+        for k, v in r.get("replayed_launches", {}).items():
+            REPLAYED_LAUNCHES[k] = REPLAYED_LAUNCHES.get(k, 0) + v
 
 
 def _compare_step(metrics, g, d, ref_metrics, ref_state, init_g):
@@ -2668,17 +2447,6 @@ def _compare_step(metrics, g, d, ref_metrics, ref_state, init_g):
             and g_rel <= STEP_G_REL and compared >= 100), worst
 
 
-def _cudnn(setting):
-    """cuDNN set as `setting` ({"enabled", "deterministic"}) with TF32 off:
-    flags() would turn cuDNN's TF32 on unless told not to."""
-    import torch
-
-    return torch.backends.cudnn.flags(
-        enabled=setting.get("enabled", True),
-        deterministic=setting.get("deterministic", False),
-        benchmark=False, allow_tf32=False)
-
-
 def _single_step(cfg, seed, batch, draws, cudnn):
     """The single-process step on the whole batch, from the ranks' weights
     (the worker's `seeded_state`) and the same draws, under the cuDNN
@@ -2686,7 +2454,7 @@ def _single_step(cfg, seed, batch, draws, cudnn):
     from mb_istft_vits_torch.train import step as tstep
 
     state = _dist_worker().seeded_state(cfg, "cuda", seed, dp_dropout=0.0)
-    with _cudnn(cudnn):
+    with _dist_worker().cudnn(cudnn):
         metrics = {k: float(v) for k, v in tstep.train_step(
             state, {k: v.cuda() for k, v in batch.items()},
             tstep.StepDraws(*(None if v is None else v.cuda()
@@ -2721,7 +2489,7 @@ def _accumulated_step(cfg, seed, batch, draws, cudnn, parts=2):
         tstep.optimizer_step(optim, params, state.learning_rate(), clip)
         return float(norm)
 
-    with _cudnn(cudnn):
+    with _dist_worker().cudnn(cudnn):
         outs = [tstep.g_forward(state, h, d) for h, d in zip(halves, draws)]
         ys = [tstep.real_slice(state, h, o[4]) for h, o in zip(halves, outs)]
         state.optim_d.zero_grad()
@@ -2801,13 +2569,20 @@ def phase_ddp(root):
     bars: with cuDNN off against the single-process step on the whole
     batch, with cuDNN deterministic against the single-process sum of the
     two 8-row halves (the 16-row step's distance reported beside it);
-    then DDP_STEPS timed steps at the config's lr from the same weights.
-    Checks the ranks' weights bit-equal after every step, equal metrics,
-    one MAS launch a rank a step. Records each rank's step ms (both ranks
-    share the card: not a scaling number), and the ms of an all-reduce of
-    one buffer of every weight's bytes, on its own outside the steps. Then
-    the CLI under torchrun at world 1 (NCCL) against the same CLI run
-    plainly, and what NCCL says to two ranks on one card."""
+    then DDP_STEPS timed steps at the config's lr (and eps 10, see
+    timed_cfg) from the same weights: two eager warm-ups, the capture of
+    the three stage graphs, a replay. Each route (the graphs, eager) is
+    timed and profiled on those graphs (the worker's `timed_routes`), and
+    a replay is held to the eager data-parallel step (`replay_vs_eager`):
+    under cuDNN's default algorithms on the same graphs, at the
+    train_graphs phase's bars; under the deterministic ones on a capture
+    of its own, bit for bit. Checks the ranks' weights bit-equal after
+    every step, equal metrics, one MAS launch a rank a step. Records each
+    rank's step ms (both ranks share the card: not a scaling number), and
+    the ms of an all-reduce of one buffer of every weight's bytes, on its
+    own outside the steps. Then the CLI under torchrun at world 1 (NCCL)
+    against the same CLI run plainly, and what NCCL says to two ranks on
+    one card."""
     import concurrent.futures
     import dataclasses
 
@@ -2827,6 +2602,12 @@ def phase_ddp(root):
         train=dataclasses.replace(cfg.train, batch_size=DDP_ROWS))
     cmp_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, learning_rate=10.0, eps=10.0))
+    # the timed steps: the config's lr, and the compared steps' eps, so
+    # that the replay under cuDNN's default algorithms is compared on the
+    # graphs they captured (eps is a constant of the captured update; the
+    # lr a tensor it reads)
+    timed_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, eps=cmp_cfg.train.eps))
     init = worker.seeded_state(cfg, "cpu", DDP_SEED)
     g0 = {k: v.clone() for k, v in init.net_g.state_dict().items()}
     del init
@@ -2867,7 +2648,8 @@ def phase_ddp(root):
             world=2, device="cuda:0", backend="gloo", timeout=300,
             cfg=cmp_cfg, seed=DDP_SEED, batch=batch, draws=draws,
             dp_dropout=0.0, compare=DDP_COMPARE, steps=DDP_STEPS,
-            restart=cfg), out, 600)
+            restart=timed_cfg, routes=DDP_ROUTE_STEPS,
+            graph_compare=GRAPH_COMPARE), out, 600)
         try:
             nccl_try.result()
             nccl = {"refused": False, "error": None}
@@ -2909,6 +2691,47 @@ def phase_ddp(root):
                   for k, v in logs["plain"][s].items()
                   if k != "steps_per_sec")
            for s in logs["plain"] if s in logs["nccl"]}
+    # the stage graphs: the timed steps' routes, the replay against the
+    # eager data-parallel step (under cuDNN's default algorithms on the
+    # timed steps' graphs, under the deterministic ones on a capture of
+    # its own), a profiled warm step of each route
+    routes_want = (["eager"] * WARMUP_ITERS + ["capture"]
+                   + ["replay"] * (DDP_STEPS - WARMUP_ITERS - 1))
+    default = [r["graph_compare"][0] for r in ranks]
+    deterministic = [r["graph_compare"][1] for r in ranks]
+    held = [_hold_replay(c) for c in default]
+    routes = {name: [r["routes"][name] for r in ranks]
+              for name in ("graph", "eager")}
+    graph_checks = {
+        "timed_steps_warm_capture_replay": all(
+            [st["route"] for st in r["steps"]] == routes_want
+            for r in ranks),
+        "replay_bit_equal_to_eager_deterministic": all(
+            c["replay"]["bit_equal"] for c in deterministic),
+        "replay_losses_and_d_within_bars_default": all(
+            h["losses_and_d"] for h in held),
+        "replay_g_updates_within_bar_or_eager_noise_default": all(
+            h["g_updates"] for h in held),
+        "default_compared_on_the_timed_steps_graphs": all(
+            not c["captured"] and c["captures"] == 0 for c in default),
+        "three_graphs_a_step_replayed": all(
+            c["graphs_a_step"] == 3 and c["replay_route"] == "replay"
+            for c in default + deterministic) and all(
+            c["captures"] == 1 for c in deterministic),
+        "replay_mas_once": all(c["replay_mas_launches"] == 1
+                               for c in default + deterministic),
+        "warm_step_3_graph_launches": all(
+            r["launches"]["cuda_graph_launch_calls"] == 3
+            for r in routes["graph"]),
+        "warm_step_few_kernel_launches": all(
+            r["launches"]["cuda_launch_kernel_calls"] < DDP_KERNEL_LAUNCHES
+            for r in routes["graph"]),
+        "routes_mas_once_a_step_and_seen": all(
+            r["mas_kernels_seen"] and set(r["mas_launches_per_step"]) == {1}
+            for rs in routes.values() for r in rs),
+        "torchrun_nccl_world_1_captured_3_graphs":
+            "captured a step of 3 graph(s)" in nccl_log,
+    }
     checks = {
         # see DDP_COMPARE
         "step_matches_single_process": compared[0][0],
@@ -2929,12 +2752,22 @@ def phase_ddp(root):
         "plain_cli_exit_0": rc_plain == 0,
         "world_1_step_1_equals_plain": sorted(rel) == [1, 2, 3]
         and rel[1] <= STEP_LOSS_REL,
+        **graph_checks,
     }
+    route_ms = {name: {r["rank"]: {k: r["routes"][name][k] for k in (
+        "step_ms_events", "launches", "device_busy_share", "device_ms")}
+        for r in ranks} for name in ("graph", "eager")}
     emit("ddp", ranks=2, rows_per_rank=DDP_ROWS, global_batch=2 * DDP_ROWS,
-         step_route="eager: a data-parallel state is not captured "
-                    "(train/graphs.py routes a world of 1 only)",
+         step_route="graphs: a rank's step is 3 CUDA graphs (the stages of "
+                    "train/step.py) with its 2 all-reduces run eagerly "
+                    "between them; warm-ups, capture, replays as routed",
+         nvidia_smi=nvidia_smi(),
          backend="gloo", device="cuda:0 (both ranks: one card shared, so "
          "the step times are not a scaling number)",
+         routes=route_ms,
+         graphs={r["rank"]: r["routes"]["graphs"] for r in ranks},
+         graph_compare={"default": default, "deterministic": deterministic},
+         timed_step_routes=[st["route"] for st in r0["steps"]],
          step_ms_per_rank=timed,
          step_ms_median_per_rank={r: statistics.median(v)
                                   for r, v in timed.items()},
@@ -2947,7 +2780,9 @@ def phase_ddp(root):
                    zip(DDP_COMPARE, compared)},
          deterministic_vs_two_8_row_halves=vs_halves[1],
          two_8_row_halves_vs_16_rows_deterministic=halves_vs_whole[1],
-         ranks_seconds=ranks_s, nccl_two_ranks_one_card=nccl,
+         ranks_seconds=ranks_s,
+         rank_seconds_by_part={r["rank"]: r["seconds"] for r in ranks},
+         nccl_two_ranks_one_card=nccl,
          torchrun_world_1={"exit_code": rc_nccl, "seconds": torchrun_s,
                            "metrics_rel_to_plain_by_step": rel,
                            "tail": out_nccl[-400:]},
@@ -3016,7 +2851,8 @@ def phase_tp():
     conv_dim0 = [k for k, dim in want.items() if dim == 0
                  and k.endswith(("weight", "weight_v"))]
     checks = {
-        "dryrun_ok": dry["backend"] == "gloo" and dry["kind"] == "data=2",
+        "dryrun_ok": dry["backend"] == "gloo" and dry["kind"] == "data=2"
+        and dry["route"] == "graphs",
         "step_matches_single_process": ok_step,
         "ranks_bit_identical": ranks[0]["compared"][0]["digest"]
         == ranks[1]["compared"][0]["digest"],
@@ -3027,8 +2863,8 @@ def phase_tp():
                                  for r in ranks),
     }
     emit("tp", dryrun=dict(dry, seconds=t2 - t0),
-         step_route="eager: an FSDP2 state is not captured "
-                    "(train/graphs.py routes a world of 1 only)",
+         step_route="eager: an FSDP2 state is not captured (its "
+                    "all-gathers run inside each layer)",
          mesh="data 1 x model 2, gloo, both ranks on cuda:0 (gloo runs "
               "FSDP2's c10d collectives on CUDA tensors; chosen, not a "
               "fallback)", seconds_2d=t1 - t0,
@@ -3070,7 +2906,7 @@ def phase_overfit():
              overfit_check.synthetic_batch(cfg).items()}
     for _ in range(WARMUP_ITERS + 1):  # warm-ups, the capture
         tstep.train_step(state, batch)
-    profile = profile_replay(state, batch)[0]
+    profile = _dist_worker().profiled(state, batch)
     ms = result["step_ms"]
     checks = {
         "mel_below_0.7_of_first": result["last_mel"]
@@ -3877,9 +3713,11 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches[name],
             "launches_by_kernel": {f"{k}_kernel": launches[k]
                                    for k in KERNELS_OF[name]},
-            "launches_by_path": {"main": launches[name], **{
-                f"bench.{tool}": counts.get(name, 0)
-                for tool, counts in BENCH_LAUNCHES.items()}},
+            "launches_by_path": {
+                "main": launches[name],
+                "main.ddp_replays": REPLAYED_LAUNCHES.get(name, 0), **{
+                    f"bench.{tool}": counts.get(name, 0)
+                    for tool, counts in BENCH_LAUNCHES.items()}},
             "shape": row["shape"], "bit_exact": all(
                 [row["bit_exact"]] + [c["bit_exact"] for c in shapes]),
             "max_abs_err": max([row["max_abs_err"]]

@@ -1,41 +1,54 @@
-"""Training-step throughput of the flagship on one card, synthetic batch
-(the JAX package's `scripts/bench_train.py`): the first step, the D and
-G halves, the step synced every time and queued, optionally fed from the
-host and double-buffered, audio-seconds trained a second, and with
-`--flops` the counted FLOPs a step, the achieved rate and `mfu`. Prints
-ONE JSON line.
+"""Training-step throughput of the flagship, synthetic batch (the JAX
+package's `scripts/bench_train.py`): the first step, the D and G halves,
+the step synced every time and queued, optionally fed from the host and
+double-buffered, audio-seconds trained a second, and with `--flops` the
+counted FLOPs a step, the achieved rate and `mfu`. Prints ONE JSON line.
 
     python -m mb_istft_vits_torch.bench_train [--batch 64] [--steps 10] \
         [--bf16] [--feed-host] [--device-spec] [--widen N] [--flops] \
         [--device cpu]
+    torchrun --nproc_per_node N -m mb_istft_vits_torch.bench_train ...
+
+Under torchrun (one rank a card; or in a process group already running)
+the state is data-parallel (`parallel.shard_train_state_dp`) and
+`--batch` is the global batch, split over the ranks as JAX's
+`shard_batch` splits it over the mesh: rank r takes its rows of the
+same synthetic batch. `devices` is the world; `step_ms`, `step_ms_host`
+and `step_ms_sync` are the slowest rank's, gathered once at the end;
+`flops_per_step` is the global batch's (the ranks' counts summed) and
+`mfu` is it over `step_ms` x world x the peak. The other fields, and
+the line, are rank 0's. Without a group it runs on one card.
 
 Every step is `train/step.py`'s `train_step`, which on a card is what
-the trainer runs: the step's CUDA graph for the batch's signature
-(`train/graphs.py`). `first_step_s` is the wall time of the steps up to
-and including the first replay: the eager warm-up steps and the capture
-(`first_steps` of them; one on the CPU). `graphs` (signatures stepped
-at), `captures`, `capture_s` (their seconds) and `pool_bytes` (the
-graphs' memory pool) follow it. `step_ms` is the card's time a step:
-CUDA events before the first and after the last of `--steps` queued
-steps (one sync at the end, as training runs), over the steps;
+the trainer runs: the step's CUDA graphs for the batch's signature
+(`train/graphs.py`; a data-parallel rank's a graph a stage, with its
+collectives between). `first_step_s` is the wall time of the steps up
+to and including the first replay: the eager warm-up steps and the
+capture (`first_steps` of them; one on the CPU). `graphs` (signatures
+stepped at), `captures`, `capture_s` (their seconds) and `pool_bytes`
+(the graphs' memory pool) follow it. `step_ms` is the card's time a
+step: CUDA events before the first and after the last of `--steps`
+queued steps (one sync at the end, as training runs), over the steps;
 `step_ms_host` is the same run on the host clock, and `steps_per_s` and
 `audio_s_per_s` are read from it, the rate a training run gets.
 `step_ms_sync` (synced each step) and the feed's step times are
-host-clock means too. The halves are CUDA events around `d_step` and
-`g_step` and around the batch prep and generator forward before them
-(`forward_ms`) of the eager step (`train_step_eager`: a replay has no
-halves to time), medians over `--steps` steps. `--flops` counts one eager
-step with `torch.utils.flop_counter` (`utils.timing.count`, on the card;
-a replay shows no op to it): `mfu` is the counted FLOPs over `step_ms`,
-divided by the peak of the step's precision (`peak_for`: float32 with
-TF32 off, as the trainer runs, or bf16 with `--bf16`). On the CPU every
-device time, `capture_s`, `pool_bytes`, `achieved_tflops` and `mfu` is
-null. `--no-donate` (XLA's buffer donation) is accepted and unused.
+host-clock means too. The halves are CUDA events around D's backward and
+update (`d_step_ms`), G's backward and update (`g_step_ms`), and the
+batch prep and generator forward before them (`forward_ms`) of the eager
+step (`train_step_eager`: a replay has no halves to time), medians over
+`--steps` steps. `--flops` counts one eager step with
+`torch.utils.flop_counter` (`utils.timing.count`, on the card; a replay
+shows no op to it): `mfu` is the counted FLOPs over `step_ms`, divided
+by the peak of the step's precision (`peak_for`: float32 with TF32 off,
+as the trainer runs, or bf16 with `--bf16`). On the CPU every device
+time, `capture_s`, `pool_bytes`, `achieved_tflops` and `mfu` is null.
+`--no-donate` (XLA's buffer donation) is accepted and unused.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import statistics
 import sys
 import time
@@ -43,6 +56,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mb_istft_vits_torch.bench import CONFIG
 from mb_istft_vits_torch.utils import timing
@@ -106,38 +120,64 @@ def step_precision(cfg, device) -> tuple:
                            and timing.tf32_enabled())
 
 
-def split_ms(state, batch, steps: int) -> dict:
-    """Median CUDA-event ms of the batch prep and generator forward, the D
-    step and the G step over `steps` eager train steps."""
+# the functions of the eager step each half's CUDA events enclose
+HALVES = {"d_step_ms": ("d_backward", "d_update"),
+          "g_step_ms": ("g_backward", "g_update")}
+
+
+@contextlib.contextmanager
+def marked_halves():
+    """While open, each call of an eager step's function in `HALVES`
+    records CUDA events around itself: yields {name: (start, end)}, the
+    last call's."""
     from mb_istft_vits_torch.train import step as tstep
 
-    marks = []
+    marks = {}
 
-    def timed(fn):
+    def timed(name, fn):
         def run(*args, **kwargs):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             out = fn(*args, **kwargs)
             end.record()
-            marks.append((start, end))
+            marks[name] = (start, end)
             return out
         return run
 
+    with contextlib.ExitStack() as stack:
+        for name in sum(HALVES.values(), ()):
+            stack.enter_context(mock.patch.object(
+                tstep, name, timed(name, getattr(tstep, name))))
+        yield marks
+
+
+def halves_ms(begin, marks) -> dict:
+    """One eager step's ms from the event `begin` (recorded before it) to
+    D's backward (`forward_ms`: the batch prep and generator forward),
+    and of each half (`HALVES`), from its `marked_halves` marks."""
+    out = {"forward_ms": begin.elapsed_time(marks["d_backward"][0])}
+    for half, fns in HALVES.items():
+        out[half] = sum(marks[f][0].elapsed_time(marks[f][1]) for f in fns)
+    return out
+
+
+def split_ms(state, batch, steps: int) -> dict:
+    """Median CUDA-event ms of the batch prep and generator forward, the D
+    half and the G half (each its backward and its update, `HALVES`) over
+    `steps` eager train steps."""
+    from mb_istft_vits_torch.train import step as tstep
+
     rows = []
-    with mock.patch.object(tstep, "d_step", timed(tstep.d_step)), \
-            mock.patch.object(tstep, "g_step", timed(tstep.g_step)):
+    with marked_halves() as marks:
         for _ in range(steps):
             marks.clear()
             begin = torch.cuda.Event(enable_timing=True)
             begin.record()
             tstep.train_step_eager(state, batch)
             torch.cuda.synchronize()
-            (d0, d1), (g0, g1) = marks
-            rows.append((begin.elapsed_time(d0), d0.elapsed_time(d1),
-                         g0.elapsed_time(g1)))
-    return {k: statistics.median(v) for k, v in
-            zip(("forward_ms", "d_step_ms", "g_step_ms"), zip(*rows))}
+            rows.append(halves_ms(begin, marks))
+    return {k: statistics.median(r[k] for r in rows) for k in rows[0]}
 
 
 def timed_steps(state, batches, device) -> tuple:
@@ -203,22 +243,63 @@ def graph_fields(state) -> dict:
             "pool_bytes": g.pool_bytes() if captured else None}
 
 
+def _slowest(record: dict) -> dict:
+    """Each rank's `record`, gathered once: the largest of each value
+    over the ranks (None where a rank has none), and the FLOP and byte
+    counts summed."""
+    if not dist.is_initialized():
+        return record
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, record)
+    out = {}
+    for k in record:
+        vals = [r[k] for r in ranks]
+        if any(v is None for v in vals):
+            out[k] = None
+        else:
+            out[k] = sum(vals) if k in ("flops", "bytes") else max(vals)
+    return out
+
+
 def main(argv=None) -> int:
+    from mb_istft_vits_torch.parallel import init_distributed
+
+    args = build_parser().parse_args(argv)
+    own_group = not dist.is_initialized()
+    # torchrun's environment starts a group, each rank on card LOCAL_RANK;
+    # else there is none. In a running group the caller chose the card
+    device = timing.tool_device(init_distributed(device=args.device).device
+                                if own_group else args.device)
+    try:
+        return run(args, device)
+    finally:
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run(args, device) -> int:
+    """The bench of `main` on `device`, in the process group if one is
+    running."""
     from mb_istft_vits_torch.data.prefetch import device_prefetch
     from mb_istft_vits_torch.infer.graphs import WARMUP_ITERS
+    from mb_istft_vits_torch.parallel import shard_train_state_dp
     from mb_istft_vits_torch.train.graphs import routed
     from mb_istft_vits_torch.train.step import (create_train_state,
                                                 train_step, train_step_eager)
 
-    args = build_parser().parse_args(argv)
-    device = timing.tool_device(args.device)
     on_card = device.type == "cuda"
+    rank, world = ((dist.get_rank(), dist.get_world_size())
+                   if dist.is_initialized() else (0, 1))
     cfg = load_config(args.config, args.batch, args.bf16, args.widen)
     b, d = cfg.train.batch_size, cfg.data
-    host = synthetic_batch(cfg, b, args.spec_frames, args.text_len,
-                           args.device_spec)
+    if b % world:
+        raise ValueError(f"a global batch of {b} does not split over "
+                         f"{world} ranks")
+    rows = b // world
+    host = {k: v[rank * rows:(rank + 1) * rows] for k, v in synthetic_batch(
+        cfg, b, args.spec_frames, args.text_len, args.device_spec).items()}
     batch = to_device(host, device)
-    state = create_train_state(cfg, device, seed=0)
+    state = shard_train_state_dp(create_train_state(cfg, device, seed=0))
 
     # the warm-up steps and the capture, up to the first replay
     first_steps = 1 + (WARMUP_ITERS if on_card and routed(state) else 0)
@@ -233,9 +314,10 @@ def main(argv=None) -> int:
            "spec_frames": args.spec_frames, "text_len": args.text_len,
            "widen": args.widen, "bf16": bool(cfg.train.fp16_run),
            "peak_memory_bytes": None,
-           "device_spec": args.device_spec, "devices": 1, "steps": args.steps}
+           "device_spec": args.device_spec, "devices": world,
+           "steps": args.steps}
     out.update(split_ms(state, batch, args.steps) if on_card else
-               dict.fromkeys(("forward_ms", "d_step_ms", "g_step_ms")))
+               dict.fromkeys(("forward_ms", *HALVES)))
 
     # synced every step: adds the host's wait for each step's end
     timing.sync(device)
@@ -243,24 +325,29 @@ def main(argv=None) -> int:
     for _ in range(args.steps):
         metrics = train_step(state, batch)
         float(metrics["loss/g/total"])
-    out["step_ms_sync"] = (time.perf_counter() - t0) / args.steps * 1e3
+    sync_ms = (time.perf_counter() - t0) / args.steps * 1e3
     # queued: one sync at the end, as training runs
     host_ms, dev_ms = timed_steps(state, [batch] * args.steps, device)
-    out.update(step_ms=dev_ms, step_ms_host=host_ms,
-               steps_per_s=1e3 / host_ms)
+    counted = (timing.count(lambda: train_step_eager(state, batch))
+               if args.flops else {})
+    counted = {k: counted.get(k) for k in ("flops", "bytes")}
+    slowest = _slowest({"step_ms": dev_ms, "step_ms_host": host_ms,
+                        "step_ms_sync": sync_ms, **counted})
+    dev_ms, host_ms = slowest["step_ms"], slowest["step_ms_host"]
+    out.update(step_ms_sync=slowest["step_ms_sync"], step_ms=dev_ms,
+               step_ms_host=host_ms, steps_per_s=1e3 / host_ms)
 
     if args.flops:
-        counted = timing.count(lambda: train_step_eager(state, batch))
         precision, peak = step_precision(cfg, device)
-        achieved = None if dev_ms is None else counted["flops"] / (
+        achieved = None if dev_ms is None else slowest["flops"] / (
             dev_ms / 1e3)
-        out.update(flops_per_step=counted["flops"],
-                   bytes_per_step=counted["bytes"], peak=precision,
+        out.update(flops_per_step=slowest["flops"],
+                   bytes_per_step=slowest["bytes"], peak=precision,
                    peak_tflops=peak / 1e12,
                    achieved_tflops=None if achieved is None
                    else achieved / 1e12,
-                   mfu=None if achieved is None else achieved / peak)
-
+                   mfu=None if achieved is None
+                   else achieved / (peak * world))
     if args.feed_host:
         nbytes = sum(a.nbytes for a in host.values())
         out["step_ms_host_fed"] = timed_steps(
@@ -282,7 +369,8 @@ def main(argv=None) -> int:
         out[k] = float(metrics[k])
     out["all_finite"] = all(np.isfinite(out[k]) for k in
                             ("loss/g/total", "loss/d/total", "grad_norm_g"))
-    timing.emit(out, device)
+    if rank == 0:
+        timing.emit(out, device)
     if not out["all_finite"]:
         raise AssertionError("train step metrics are not finite")
     return 0

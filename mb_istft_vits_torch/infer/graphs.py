@@ -154,10 +154,7 @@ class GraphCache:
             try:
                 out = fn(*inputs)
             except BaseException:
-                try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass  # the capture is invalid; fn's error says why
+                end_failed_capture(graph)
                 raise
             graph.capture_end()
         current.wait_stream(side)
@@ -171,6 +168,20 @@ class GraphCache:
         """Bytes the caching allocator holds in this cache's pool, over
         every device (None before the first capture)."""
         return pool_bytes(self.pool)
+
+
+def end_failed_capture(graph) -> None:
+    """End the capture of `graph` after its body raised (the body's error
+    says why). A capture the error invalidated fails to end, and torch
+    then leaves the current device's default CUDA generator in its
+    capture mode, where every later random op outside a capture fails; so
+    its state is set anew, at the seed and offset it had before the
+    capture (a capture does not advance them)."""
+    try:
+        graph.capture_end()
+    except RuntimeError:
+        gen = torch.cuda.default_generators[torch.cuda.current_device()]
+        gen.graphsafe_set_state(gen.clone_state())
 
 
 def pool_bytes(pool) -> Optional[int]:

@@ -4,7 +4,6 @@
 from mb_istft_vits_torch.parallel.mesh import (  # noqa: F401
     DistInfo,
     create_mesh,
-    data_parallel,
     init_distributed,
     mesh_devices,
     mesh_size,

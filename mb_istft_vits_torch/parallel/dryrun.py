@@ -6,7 +6,7 @@ JAX package's `__graft_entry__.dryrun_multichip`).
 `dryrun_multichip(n)` starts n processes, one rank each, and runs one D +
 G step of a tiny multi-band model on a global batch of n rows: for n >= 4
 (even) over the 2-D (data x model) mesh of `parallel.tp`, n/2 x 2, each
-data replica taking two rows; for smaller n data-parallel (DDP), one row
+data replica taking two rows; for smaller n data-parallel, one row
 a rank. Ranks use NCCL on distinct cards, and gloo when they share one
 card or run on the CPU. It checks that every rank ends with the same
 finite losses and the same weights, and prints one line.
@@ -159,7 +159,7 @@ def rank_group(address: str, world: int, rank: int, device: str,
 
 
 def shard_state(state, n_model: int):
-    """`state` data-parallel (DDP) when `n_model` is 1, else under FSDP2
+    """`state` data-parallel when `n_model` is 1, else under FSDP2
     over the (world / n_model) x n_model mesh. Returns `state`."""
     from mb_istft_vits_torch.parallel import (
         create_2d_mesh,
@@ -209,6 +209,8 @@ def run_rank(rank: int, world: int, address: str, device: str,
                                                seed=0), layout(world)[1])
         metrics = train_step(state, rank_rows(tiny_batch(world), state))
         return {"rank": rank, "data_rank": state.data_rank,
+                # FSDP2 steps eagerly; every other state through its graphs
+                "route": "eager" if state.graphs is None else "graphs",
                 "metrics": {k: float(v) for k, v in metrics.items()},
                 "digest": digest((state.net_g, state.net_d)),
                 "launch_counts": dict(mas.launch_counts)}
@@ -218,7 +220,8 @@ def dryrun_multichip(n_devices: int, *, device: str = "cuda",
                      timeout: float = 600.0) -> dict:
     """Run the step over `n_devices` ranks (module docstring); raises
     unless every rank exits 0 with the same finite losses and the same
-    weights. Returns {"kind", "backend", "loss_g", "ranks"}."""
+    weights. Returns {"kind", "backend", "route" (the step's: "graphs",
+    or "eager" under FSDP2), "loss_g", "ranks"}."""
     n_data, n_model = layout(n_devices)
     if device == "cuda":
         if not torch.cuda.is_available():
@@ -242,10 +245,11 @@ def dryrun_multichip(n_devices: int, *, device: str = "cuda",
         raise AssertionError(f"ranks disagree or are not finite: {results}")
     kind = (f"data={n_data} x model={n_model}" if n_model > 1
             else f"data={n_data}")
-    print(f"dryrun_multichip({n_devices}): ok ({kind}, {backend}), "
-          f"loss_g={loss_g:.4f}", flush=True)
-    return {"kind": kind, "backend": backend, "loss_g": loss_g,
-            "ranks": results}
+    route = results[0]["route"]
+    print(f"dryrun_multichip({n_devices}): ok ({kind}, {backend}, step "
+          f"route {route}), loss_g={loss_g:.4f}", flush=True)
+    return {"kind": kind, "backend": backend, "route": route,
+            "loss_g": loss_g, "ranks": results}
 
 
 def main(argv=None) -> int:

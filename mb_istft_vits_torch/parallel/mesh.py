@@ -7,8 +7,10 @@ sharded over its "data" axis, and several hosts through
 `jax.distributed`: each process feeds its own rows of the global batch.
 The port runs one process per card, as torchrun launches them, which is
 JAX's multi-host layout with one chip per host: rank r takes batcher rank
-r, the global batch is world x batch_size rows, and the gradient
-all-reduce is DDP's. Serving fans a batch out over the devices of one
+r, the global batch is world x batch_size rows, and the training step
+averages the gradients itself, in two all-reduces of flat buffers
+between the stages of its CUDA graphs (`train.step`), where XLA inserts
+them inside its two programs. Serving fans a batch out over the devices of one
 process instead (`infer/synthesis.py`): there `create_mesh` is a device
 list and `shard_batch` splits rows over it.
 """
@@ -167,29 +169,25 @@ def shard_batch(batch: Any, mesh: Sequence, axis_name: str = "data"
     return [part(batch, i) for i in range(n)]
 
 
-def data_parallel(module: torch.nn.Module) -> torch.nn.Module:
-    """`module` under DDP when a process group is running (its forward then
-    arms the gradient all-reduce of the backward), else `module` itself.
-    Buffers are not broadcast: they are constant windows and filters, and
-    broadcasting them would add a collective to every forward."""
-    if not dist.is_initialized():
-        return module
-    dev = next(module.parameters()).device
-    return torch.nn.parallel.DistributedDataParallel(
-        module, device_ids=[dev] if dev.type == "cuda" else None,
-        broadcast_buffers=False)
-
-
 def shard_train_state_dp(state):
     """Make `state` (`train.step.TrainState`) data-parallel over the process
-    group: its forwards go through DDP wrappers of the generator and the
-    discriminator, which stay the plain modules in `net_g` / `net_d` (for
-    evaluation and checkpoints, and for D inside the G step), and its data
-    rank and replicas are the group's. Without a group it is left as it
-    is. Returns `state`."""
+    group: its data rank and replicas are the group's, and its step
+    averages the gradients over the group (`train.step`); no module is
+    wrapped. Rank 0's weights are broadcast to every rank first, as
+    DDP's constructor does. Drops the state's step graphs (their key and
+    their stages change). Without a group it is left as it is. Returns
+    `state`."""
     if not dist.is_initialized():
         return state
-    state.ddp_g = data_parallel(state.net_g)
-    state.ddp_d = data_parallel(state.net_d)
+    with torch.no_grad():
+        for net in (state.net_g, state.net_d):
+            params = [p.detach() for p in net.parameters()]
+            flat = torch.cat([p.reshape(-1) for p in params])
+            dist.broadcast(flat, 0)
+            torch._foreach_copy_(params, [v.view_as(p) for v, p in zip(
+                flat.split([p.numel() for p in params]), params)])
+    state.dp_group = dist.group.WORLD
     state.data_rank, state.data_world = dist.get_rank(), dist.get_world_size()
+    if state.graphs is not None:
+        state.graphs.clear()
     return state

@@ -1,42 +1,58 @@
-"""CUDA graphs of the training step, one per batch signature (the port's
-counterpart of the JAX package's two jitted train programs, `d_step` and
-`g_step` of `train/step.py:make_train_step`, compiled once per bucket
-shape: "2 per bucket", `train.py:262-266`). One graph holds both halves.
+"""CUDA graphs of the training step, one set per batch signature (the
+port's counterpart of the JAX package's two jitted train programs,
+`d_step` and `g_step` of `train/step.py:make_train_step`, compiled once
+per bucket shape: "2 per bucket", `train.py:262-266`; its data-parallel
+step is the same two programs, with the gradient all-reduces that XLA
+inserts inside them).
 
 `TrainGraphs.step(state, batch, draws)` is one real training step. At a
 new key, the batch's signature (each step input's shape and dtype, or
 None: "x", "x_lengths", "wav" int16 or float, "spec" present or not,
 "spec_lengths", "sid", and the draws) with the model variant, `fp16_run`,
-`mas_force` and the device, the first `WARMUP_ITERS` calls run the eager
-body (`train.step.step_body`) on a side stream, each the step it is: a
-training warm-up changes the weights, so it cannot be run and thrown
-away, and it sets up what a capture cannot (cuDNN's algorithm choice,
-cuFFT's plans, the mel basis, the MAS library's build, the gradients and
-AdamW's moments). The next call captures the body on static copies of
-its inputs and replays it for that same step; every later call at the key
-copies its inputs into those buffers and replays. Every call is one step,
-so `state.step`, the draws (`train.step.draw_step`, made before the
-step from the step's generator) and the lr schedule (`write_lr`, filled
-into the optimizers' lr tensors before the step) advance as eagerly.
-Dropout draws from torch's default CUDA generator, whose offset a replay
-advances.
+`mas_force`, the device, the world size and the group's backend, the
+first `WARMUP_ITERS` calls run the eager body (`train.step.step_body`) on
+a side stream, each the step it is: a training warm-up changes the
+weights, so it cannot be run and thrown away, and it sets up what a
+capture cannot (cuDNN's algorithm choice, cuFFT's plans, the mel basis,
+the MAS library's build, the gradients, the flat gradient buffers and
+AdamW's moments). The next call captures the step on static copies of
+its inputs and runs it; every later call at the key copies its inputs
+into those buffers and replays. Every call is one step, so
+`state.step`, the draws (`train.step.draw_step`, made before the step
+from the step's generator; a data-parallel rank draws its own rows) and
+the lr schedule (`write_lr`, filled into the optimizers' lr tensors
+before the step) advance as eagerly.
 
-Nothing that outlives a replay lives in a graph's memory pool: the
-gradients, AdamW's moments, step counts and lr are made by the eager
-warm-up steps, outside any pool, and each graph zeroes the gradients in
-place and writes the same tensors. So all of a state's graphs share one
-pool, replayed one at a time on the caller's stream, in any order. A
-capture in which a parameter's gradient first appears raises. The
-metrics leave the graph as one stacked float32 buffer, copied out at each
+The step is the three stages of `train.step.step_stages`. A plain
+state's are one graph. A data-parallel state's (a world above 1, or a
+process group of one rank) are a graph each, from one collective to the
+next:
+the all-reduces run eagerly between the graphs, on the caller's stream
+in place on the flat gradient buffers (`train.step.drive`, which the
+warm-ups, the capture and the replays all go through). The capture runs
+the step so: it captures stage 1 and replays it, runs collective 1,
+captures stage 2, and so on. Over NCCL nothing waits on the host; over
+gloo each collective syncs, as eagerly. Dropout draws from torch's
+default CUDA generator, whose offset each graph's replay advances by
+what that graph drew.
+
+Nothing that outlives a step lives in a graph's memory pool: the
+gradients and their flat buffers, AdamW's moments, step counts and lr
+are made by the eager warm-up steps, outside any pool, and each graph
+zeroes the gradients in place and writes the same tensors. So all of a
+state's graphs share one pool, the stages of a step replayed in their
+order, one step at a time, on the caller's stream. A capture in which a
+parameter's gradient or a flat buffer first appears raises. The metrics
+leave the last graph as one stacked float32 buffer, copied out at each
 replay (a later replay overwrites it) and split into 0-d tensors of
 their eager dtypes.
 
-`train.step.train_step` routes a state here when it has a world of 1 (no
-DDP or FSDP2 wrapper: capturing their collectives is not done; such a
-state steps eagerly, as JAX's compiled-program cache is single-device
-too, `train.py:436-444`). On a device without graphs (the CPU) the body
-runs directly and its key is kept all the same (`keys()`). A capture or
-replay that fails raises; nothing falls back to eager.
+`train.step.train_step` routes every state here but one under FSDP2
+(`tp_mesh`), whose all-gathers run inside each layer, so that no stretch
+of its step is free of a collective; it steps eagerly. On a device
+without graphs (the CPU) the body runs directly and its key is kept all
+the same (`keys()`). A capture or replay that fails raises; nothing
+falls back to eager.
 
 Whatever replaces or rewrites the tensors a graph reads must drop the
 state's graphs (`clear`): `train.checkpoint.resume` does when it loads
@@ -49,23 +65,25 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from mb_istft_vits_torch.infer.graphs import (_CAPTURE_LOCK, WARMUP_ITERS,
+                                              end_failed_capture,
                                               pool_bytes, signature)
 from mb_istft_vits_torch.ops import mas
-from mb_istft_vits_torch.train.step import (StepDraws, TrainState,
+from mb_istft_vits_torch.train.step import (StepDraws, TrainState, drive,
                                             draw_step, step_body,
-                                            train_step_eager, write_lr)
+                                            step_stages, train_step_eager,
+                                            write_lr)
 
 # the batch entries the step reads, in the graph's input order
 STEP_KEYS = ("x", "x_lengths", "wav", "spec", "spec_lengths", "sid")
 
 
 def routed(state: TrainState) -> bool:
-    """Whether `train_step` steps `state` through `TrainGraphs`: a world of
-    1, no DDP or FSDP2 wrapper."""
-    return (state.ddp_g is None and state.ddp_d is None
-            and state.tp_mesh is None)
+    """Whether `train_step` steps `state` through `TrainGraphs`: every
+    state but one under FSDP2."""
+    return state.tp_mesh is None
 
 
 def _args(batch: Dict[str, torch.Tensor], draws: Optional[StepDraws]
@@ -74,31 +92,39 @@ def _args(batch: Dict[str, torch.Tensor], draws: Optional[StepDraws]
             + list(draws if draws is not None else StepDraws(None, None)))
 
 
-def _body(state: TrainState, args: Sequence[Optional[torch.Tensor]]
-          ) -> Dict[str, torch.Tensor]:
+def _unpack(args: Sequence[Optional[torch.Tensor]]
+            ) -> Tuple[Dict[str, torch.Tensor], StepDraws]:
     n = len(STEP_KEYS)
-    batch = {k: a for k, a in zip(STEP_KEYS, args[:n]) if a is not None}
-    return step_body(state, batch, StepDraws(*args[n:]))
+    return ({k: a for k, a in zip(STEP_KEYS, args[:n]) if a is not None},
+            StepDraws(*args[n:]))
 
 
 class _TrainGraph:
-    """One captured step: the graph, its static input buffers, the stacked
-    metrics it writes (names and eager dtypes), and the MAS launches of
-    its capture, which each replay adds (`ops.mas.add_launches`)."""
+    """One captured step: a graph a stage, the static input buffers, the
+    stacked metrics the last graph writes (names and eager dtypes), and
+    the MAS launches of the capture, which each replay adds
+    (`ops.mas.add_launches`)."""
 
-    def __init__(self, graph, inputs: List[Optional[torch.Tensor]],
+    def __init__(self, graphs: Sequence, inputs: List[Optional[torch.Tensor]],
                  metrics: torch.Tensor, names: Tuple[str, ...],
                  dtypes: Tuple[torch.dtype, ...], launches: Dict[str, int]):
-        self.graph, self.inputs, self.metrics = graph, inputs, metrics
+        self.graphs, self.inputs, self.metrics = list(graphs), inputs, metrics
         self.names, self.dtypes, self.launches = names, dtypes, launches
 
-    def replay(self, args: Sequence[Optional[torch.Tensor]]
+    def replay(self, state: Optional[TrainState],
+               args: Sequence[Optional[torch.Tensor]]
                ) -> Dict[str, torch.Tensor]:
+        """The step on `args`: copied into the input buffers, then the
+        stages' graphs with the state's collectives between (`drive`)."""
         for buf, a in zip(self.inputs, args):
             if buf is not None:
                 buf.copy_(a, non_blocking=True)
-        self.graph.replay()
+        drive(state, lambda i: self.graphs[i].replay(), len(self.graphs))
         mas.add_launches(self.launches)
+        return self.read()
+
+    def read(self) -> Dict[str, torch.Tensor]:
+        """The last step's metrics, copied out of the graph's buffer."""
         flat = self.metrics.clone()
         return {k: v.to(dt) for k, v, dt in
                 zip(self.names, flat.unbind(), self.dtypes)}
@@ -106,8 +132,9 @@ class _TrainGraph:
 
 class TrainGraphs:
     """The step graphs of one `TrainState`. `captures`, `replays`,
-    `eager_steps` (the warm-ups), `capture_seconds` and
-    `pool_bytes_at_capture` ({key: value}) count what it did."""
+    `eager_steps` (the warm-ups), `capture_seconds`,
+    `pool_bytes_at_capture` and `graphs_a_step` ({key: value})
+    count what it did."""
 
     def __init__(self):
         self.pool = None  # made at the first capture (needs a card)
@@ -119,6 +146,7 @@ class TrainGraphs:
         self.eager_steps = 0
         self.capture_seconds: Dict[tuple, float] = {}
         self.pool_bytes_at_capture: Dict[tuple, Optional[int]] = {}
+        self.graphs_a_step: Dict[tuple, int] = {}
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -140,9 +168,12 @@ class TrainGraphs:
     def key(state: TrainState, args: Sequence[Optional[torch.Tensor]]
             ) -> tuple:
         m = state.cfg.model
+        group = state.group
         return ("train", type(state.net_g.dec).__name__, m.use_sdp,
                 m.n_speakers, state.cfg.train.fp16_run, state.mas_force,
-                state.device, signature(args))
+                state.device, state.world,
+                None if group is None else dist.get_backend(group),
+                signature(args))
 
     def pool_bytes(self) -> Optional[int]:
         """Bytes the caching allocator holds in the graphs' pool (None
@@ -179,7 +210,9 @@ class TrainGraphs:
                 self._warm[key] = warm + 1
                 return self._eager(state, args)
             g = self._graphs[key] = self._capture(key, state, args)
-        metrics = g.replay(args)
+            metrics = g.read()
+        else:
+            metrics = g.replay(state, args)
         self.replays += 1
         return metrics
 
@@ -193,7 +226,7 @@ class TrainGraphs:
         current, side = torch.cuda.current_stream(), self._side_stream()
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            metrics = _body(state, args)
+            metrics = step_body(state, *_unpack(args))
         current.wait_stream(side)
         for v in metrics.values():  # made on the side stream, read on ours
             v.record_stream(current)
@@ -201,6 +234,9 @@ class TrainGraphs:
         return metrics
 
     def _capture(self, key, state, args) -> _TrainGraph:
+        """Capture each stage on static copies of `args` and run it at
+        once (replay), the collectives between, so that this call is the
+        step it is."""
         t0 = time.perf_counter()
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
@@ -208,6 +244,36 @@ class TrainGraphs:
         params = [p for net in (state.net_g, state.net_d)
                   for p in net.parameters()]
         without_grad = [p.grad is None for p in params]
+        buffers = dict(state.grad_buffers)
+        stages = step_stages(state, *_unpack(inputs))
+        # a graph from one collective to the next: with none, one graph
+        parts = ([stages] if state.group is None
+                 else [[stage] for stage in stages])
+        graphs, launches, flat = [], {}, []
+
+        def capture(i):
+            graph = torch.cuda.CUDAGraph()
+            with mas.captured_launches() as counted:
+                graph.capture_begin(pool=self.pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    for stage in parts[i]:
+                        out = stage()
+                    if out is not None:  # the metrics, stacked in the graph
+                        flat.append((tuple(out), tuple(
+                            v.dtype for v in out.values()), torch.stack(
+                                [v.float().reshape(()) for v in
+                                 out.values()])))
+                except BaseException:
+                    end_failed_capture(graph)
+                    raise
+                graph.capture_end()
+            graph.replay()
+            mas.add_launches(counted)
+            for k, v in counted.items():
+                launches[k] = launches.get(k, 0) + v
+            graphs.append(graph)
+
         current, side = torch.cuda.current_stream(), self._side_stream()
         side.wait_stream(current)
         # the warm-up steps leave the allocator's cache full of blocks the
@@ -216,33 +282,20 @@ class TrainGraphs:
         # emptied first, as torch.cuda.graph does
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        graph = torch.cuda.CUDAGraph()
-        with _CAPTURE_LOCK, torch.cuda.stream(side), \
-                mas.captured_launches() as launches:
-            graph.capture_begin(pool=self.pool,
-                                capture_error_mode="thread_local")
-            try:
-                metrics = _body(state, inputs)
-                names = tuple(metrics)
-                dtypes = tuple(metrics[k].dtype for k in names)
-                flat = torch.stack([metrics[k].float().reshape(())
-                                    for k in names])
-            except BaseException:
-                try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass  # the capture is invalid; the body's error says why
-                raise
-            graph.capture_end()
+        with _CAPTURE_LOCK, torch.cuda.stream(side):
+            drive(state, capture, len(parts))
         current.wait_stream(side)
         appeared = sum(1 for p, none in zip(params, without_grad)
                        if none and p.grad is not None)
-        if appeared:
+        if appeared or state.grad_buffers.keys() != buffers.keys():
             raise RuntimeError(
-                f"train graph {key[:-1]}: {appeared} gradient(s) first "
-                "allocated inside the capture, in the graphs' pool; the "
-                "eager warm-up steps must make every gradient")
+                f"train graph {key[:-1]}: {appeared} gradient(s) or a flat "
+                "gradient buffer first allocated inside the capture, in the "
+                "graphs' pool; the eager warm-up steps must make them all")
+        (names, dtypes, metrics), = flat
         self.captures += 1
         self.capture_seconds[key] = time.perf_counter() - t0
         self.pool_bytes_at_capture[key] = self.pool_bytes()
-        return _TrainGraph(graph, inputs, flat, names, dtypes, launches)
+        self.graphs_a_step.pop(key, None)  # the newest capture last
+        self.graphs_a_step[key] = len(graphs)
+        return _TrainGraph(graphs, inputs, metrics, names, dtypes, launches)

@@ -420,8 +420,10 @@ def _run(args: argparse.Namespace, info) -> int:
                 if graphs is not None and graphs.captures > captures:
                     captures = graphs.captures
                     pool = graphs.pool_bytes() or 0
-                    logger.info("step %d: captured a step graph (%d in all, "
-                                "pool %.1f MB)", step, captures, pool / 1e6)
+                    logger.info("step %d: captured a step of %d graph(s) "
+                                "(%d captures in all, pool %.1f MB)", step,
+                                list(graphs.graphs_a_step.values())[-1],
+                                captures, pool / 1e6)
                 stop = sigterm.agreed()
                 if rank0 and step % t.log_interval == 0:
                     m = {k: float(v) for k, v in metrics.items()}

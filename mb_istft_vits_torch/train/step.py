@@ -20,14 +20,25 @@ Data parallel (`parallel.mesh.shard_train_state_dp`, one process per
 card; `parallel.tp.shard_train_state_tp`, FSDP2 over a data x model
 mesh): each process steps on its own rows of the global batch, as a JAX
 host feeds its rows to one SPMD program, and the step's numbers are the
-global batch's, as XLA computes them. The gradient average is DDP's (or
-FSDP2's); two G losses are ratios over the whole batch (the KL over
-sum(z_mask), the duration loss over sum(x_mask)), so their mask sums are
-all-reduced before the backward and each rank's term is scaled by
-world * local sum / global sum: the average of the ranks' gradients is
-then the global loss's. The logged losses are averaged over the ranks,
-which makes them the global batch's too. One process, or a group of one,
-runs the plain step.
+global batch's, as XLA computes them. Such a step runs in three stages
+(`step_stages`) with one all-reduce between each two (`drive`):
+  1. forward, D's loss and backward; buffer 1 is [D's gradients | D's
+     loss | sum(x_mask), sum(z_mask)]
+  2. D's AdamW, G's losses at the global mask sums, G's backward;
+     buffer 2 is [G's gradients | G's losses]
+  3. G's clip and AdamW, the gradient norms, the metrics
+Each buffer is one flat float32 tensor a network (`grad_buffer`), made at
+the first step, of which every reduced `p.grad` is a view; the stage
+scales the gradients and the losses in it by 1/world and the collective
+sums it in place, as DDP's reducer does, so the gradients are the ranks'
+average and the losses the global batch's. Two G losses are ratios over
+the whole batch (the KL over sum(z_mask), the duration loss over
+sum(x_mask)): each rank's term is scaled by world * local sum / global
+sum, so the average of the ranks' gradients is the global loss's.
+Under FSDP2 the buffers hold only the leaves it leaves replicated; it
+reduces the sharded ones itself. A plain state (no group) runs the same
+three stages with no buffer and no collective; a group of one rank runs
+them with both.
 
 The JAX package splits the step into two programs and re-runs the fake's
 subgraph in the first (`Synthesizer.fake_slice`) only to keep each TPU
@@ -36,20 +47,22 @@ the same draws. Master weights, optimizer state and every loss stay
 float32; there is no loss scaling.
 
 Where JAX compiles its two programs once per bucket shape, `train_step`
-runs the step as a CUDA graph per batch signature (`train.graphs`) on a
-card with a world of 1; `train_step_eager` is the same step kernel by
-kernel. So that the body can be captured, it draws nothing and writes no
-Python value into the device: the draws come in as tensors (`draw_step`
-makes them from the step's generator, in the eager order), the lr is a
-0-dim tensor of each capturable optimizer that `write_lr` fills before
-the step, and the gradients are zeroed in place, never set to None.
+runs the step as CUDA graphs per batch signature (`train.graphs`) on a
+card: one graph of the plain step, or one graph a stage of a
+data-parallel one, with the collectives run eagerly between their
+replays; `train_step_eager` is the same step kernel by kernel. So that a
+stage can be captured, it draws nothing and writes no Python value into
+the device: the draws come in as tensors (`draw_step` makes them from the
+step's generator, in the eager order), the lr is a 0-dim tensor of each
+capturable optimizer that `write_lr` fills before the step, and the
+gradients are zeroed in place, never set to None.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -75,8 +88,9 @@ class StepDraws(NamedTuple):
     noise [B, T_spec, inter_channels], the decode slice's start frames
     [B] int32 and, for a model with the stochastic duration predictor,
     its posterior noise [B, T_x, 2] (None: drawn from the step's
-    generator). Data-parallel, they are the global batch's draws, and
-    rank r takes rows [r * B:(r + 1) * B]."""
+    generator). Data-parallel, they are this rank's B rows (`draw_step`'s)
+    or the global batch's B x world, of which rank r takes rows
+    [r * B:(r + 1) * B]."""
 
     posterior_eps: torch.Tensor
     ids_slice: torch.Tensor
@@ -91,10 +105,13 @@ class TrainState:
     optimizers' own step count, `step - lr_offset`: `lr_offset` is 0
     unless the optimizers were reset on resume (`train.checkpoint.resume`).
 
-    Data parallel: `ddp_g` / `ddp_d` are the DDP wrappers the forwards go
-    through (None: the modules themselves), `data_rank` / `data_world`
-    this process's rows of the global batch, and `tp_mesh` the data x
-    model mesh when FSDP2 shards the modules (`parallel.tp`).
+    Data parallel: `dp_group` is the process group whose ranks average
+    the gradients (`parallel.mesh.shard_train_state_dp`; None: no data
+    parallelism), `data_rank` / `data_world` this process's rows of the
+    global batch, and `tp_mesh` the data x model mesh when FSDP2 shards
+    the modules (`parallel.tp`). `grad_buffers` holds the flat gradient
+    buffer of each network ("d", "g") that the step's collectives reduce
+    (`grad_buffer`).
 
     `mas_force` routes the alignment (`ops.mas.maximum_path(force=)`);
     `graphs` holds the step's CUDA graphs (`train.graphs.TrainGraphs`,
@@ -108,12 +125,13 @@ class TrainState:
     seed: int
     step: int = 0
     lr_offset: int = 0
-    ddp_g: Optional[torch.nn.Module] = None
-    ddp_d: Optional[torch.nn.Module] = None
+    dp_group: Optional[Any] = None
     data_rank: int = 0
     data_world: int = 1
     tp_mesh: Optional[object] = None
     mas_force: str = "auto"
+    grad_buffers: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
     graphs: Optional[Any] = dataclasses.field(default=None, repr=False,
                                               compare=False)
 
@@ -122,22 +140,19 @@ class TrainState:
         return next(self.net_g.parameters()).device
 
     @property
-    def fwd_g(self) -> torch.nn.Module:
-        """The module G's training forward goes through: the DDP wrapper
-        arms the gradient all-reduce only when its own forward runs."""
-        return self.net_g if self.ddp_g is None else self.ddp_g
-
-    @property
-    def fwd_d(self) -> torch.nn.Module:
-        return self.net_d if self.ddp_d is None else self.ddp_d
+    def group(self):
+        """The process group the step's collectives run over: the
+        data-parallel group, every rank under FSDP2, None for a plain
+        state (no collective)."""
+        if self.tp_mesh is not None:
+            return dist.group.WORLD
+        return self.dp_group
 
     @property
     def world(self) -> int:
-        """Ranks whose gradients are averaged: the process group's when the
-        state is data-parallel, else 1."""
-        if self.ddp_g is None and self.tp_mesh is None:
-            return 1
-        return dist.get_world_size()
+        """Ranks whose gradients are averaged: the group's, else 1."""
+        group = self.group
+        return 1 if group is None else dist.get_world_size(group)
 
     def learning_rate(self) -> float:
         """The lr of the next step."""
@@ -231,20 +246,63 @@ def _global_norm(params) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
-def _reduce_replicated(state: TrainState, params) -> None:
-    """Under FSDP2, average the gradients of the parameters it leaves
-    replicated (`parallel.tp.param_spec`'s 1-D and indivisible leaves)
-    over every rank, as it averages the sharded ones."""
-    if state.tp_mesh is None:
-        return
-    grads = [p.grad for p in params
+def grad_buffer(state: TrainState, name: str, params, tail: int
+                ) -> torch.Tensor:
+    """The flat float32 buffer of network `name` ("d" or "g") that a
+    collective reduces: the gradients of `params` that the step reduces
+    (each one it has made; under FSDP2 the replicated ones), then `tail`
+    more values. Made at the first call, outside any graph pool, from the
+    gradients the step has just made, each of which becomes a view of it:
+    autograd then accumulates into the view in place, and
+    `zero_grad(set_to_none=False)` zeroes it there. A parameter that has
+    no gradient then is left out and keeps None, so AdamW skips it, as
+    it does in the plain step. Later calls check that each reduced
+    gradient is still a view of the buffer: one that appeared after it
+    was made, or was replaced, raises."""
+    grads = [p for p in params
              if p.grad is not None and not hasattr(p, "to_local")]
-    if grads:
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
-        flat /= dist.get_world_size()
-        torch._foreach_copy_(grads, list(flat.split(
-            [g.numel() for g in grads])))
+    buf = state.grad_buffers.get(name)
+    if buf is None:
+        sizes = [p.numel() for p in grads]
+        buf = torch.zeros(sum(sizes) + tail, dtype=torch.float32,
+                          device=state.device)
+        for p, view in zip(grads, buf[:sum(sizes)].split(sizes)):
+            view = view.view(p.shape)
+            view.copy_(p.grad)
+            p.grad = view
+        state.grad_buffers[name] = buf
+    else:
+        stray = sum(1 for p in grads if p.grad._base is not buf)
+        if stray:
+            raise RuntimeError(
+                f"{stray} gradient(s) of net {name} are not views of its "
+                "flat buffer: every reduced gradient must exist at the "
+                "first step and be written in place")
+    return buf
+
+
+def _fill(state: TrainState, name: str, params, scaled: torch.Tensor,
+          summed: Optional[torch.Tensor] = None) -> None:
+    """Buffer `name` ready for its collective: [gradients | `scaled` |
+    `summed`], the gradients (already in it) and `scaled` times 1/world,
+    as DDP's reducer scales a gradient into its bucket, `summed` as it
+    is."""
+    tail = scaled.numel() + (0 if summed is None else summed.numel())
+    buf = grad_buffer(state, name, params, tail)
+    k = buf.numel() - tail + scaled.numel()
+    buf[k - scaled.numel():k].copy_(scaled)
+    buf[:k].mul_(1.0 / state.world)
+    if summed is not None:
+        buf[k:].copy_(summed)
+
+
+REDUCED = ("d", "g")  # the buffer collective i of a data-parallel step sums
+
+
+def all_reduce_buffer(state: TrainState, i: int) -> None:
+    """Collective i of a data-parallel step: buffer REDUCED[i] summed over
+    the state's group, in place, on the current stream."""
+    dist.all_reduce(state.grad_buffers[REDUCED[i]], group=state.group)
 
 
 def set_lr(optim: torch.optim.AdamW, lr: float) -> None:
@@ -289,7 +347,7 @@ def g_forward(state: TrainState, batch: Dict[str, torch.Tensor],
     drawn = (draws.posterior_eps is not None and draws.ids_slice is not None
              and (draws.sdp_eps is not None or not state.cfg.model.use_sdp))
     with _autocast(state):
-        return state.fwd_g(batch["x"], batch["x_lengths"], batch["spec"],
+        return state.net_g(batch["x"], batch["x_lengths"], batch["spec"],
                            batch["spec_lengths"], batch.get("sid"),
                            posterior_eps=draws.posterior_eps,
                            ids_slice=draws.ids_slice, sdp_eps=draws.sdp_eps,
@@ -307,8 +365,8 @@ def draw_step(state: TrainState, batch: Dict[str, torch.Tensor]
     before the draw takes its dtype), the stochastic duration predictor's
     noise [B, T_x, 2] (float32 likewise), then the slice's uniform [B].
     Passed as `draws`, they give the step that drew them itself, bit for
-    bit. A state with a world of 1 (a data-parallel step takes the global
-    batch's draws)."""
+    bit. A data-parallel state draws its own rows from its own generator
+    (the data rank is in its seed), as its step does."""
     d, m = state.cfg.data, state.cfg.model
     b, t_x = batch["x"].shape
     if "spec" in batch:
@@ -338,25 +396,38 @@ def real_slice(state: TrainState, batch, ids_slice) -> torch.Tensor:
 def d_loss(state: TrainState, y: torch.Tensor, y_hat: torch.Tensor
            ) -> torch.Tensor:
     """The discriminator's LSGAN loss on (real y, fake y_hat [B, 1, T],
-    detached here), through D's forward (DDP's when data-parallel)."""
+    detached here)."""
     with _autocast(state):
-        y_d_r, y_d_g, _, _ = state.fwd_d(y, y_hat.detach())
+        y_d_r, y_d_g, _, _ = state.net_d(y, y_hat.detach())
     return discriminator_loss(y_d_r, y_d_g)[0]
+
+
+def d_backward(state: TrainState, y: torch.Tensor, y_hat: torch.Tensor
+               ) -> torch.Tensor:
+    """D's LSGAN loss on (real y, fake y_hat [B, 1, T], detached), its
+    gradients zeroed in place, then its backward; returns the loss,
+    detached."""
+    loss_disc = d_loss(state, y, y_hat)
+    state.optim_d.zero_grad(set_to_none=False)
+    loss_disc.backward()
+    return loss_disc.detach()
+
+
+def d_update(state: TrainState) -> torch.Tensor:
+    """D's gradient norm, then its AdamW step at the lr the optimizer holds
+    (`write_lr`), no clip; returns the norm."""
+    params = list(state.net_d.parameters())
+    grad_norm_d = _global_norm(params)
+    optimizer_step(state.optim_d, params, None)
+    return grad_norm_d
 
 
 def d_step(state: TrainState, y: torch.Tensor, y_hat: torch.Tensor
            ) -> Dict[str, torch.Tensor]:
     """Discriminator step on (real y, fake y_hat [B, 1, T], detached
-    here): LSGAN loss, AdamW at the lr the optimizer holds (`write_lr`),
-    no clip. The gradients are zeroed in place."""
-    loss_disc = d_loss(state, y, y_hat)
-    state.optim_d.zero_grad(set_to_none=False)
-    loss_disc.backward()
-    params = list(state.net_d.parameters())
-    _reduce_replicated(state, params)
-    grad_norm_d = _global_norm(params)
-    optimizer_step(state.optim_d, params, None)
-    return {"loss/d/total": loss_disc.detach(), "grad_norm_d": grad_norm_d}
+    here): `d_backward`, then `d_update`."""
+    loss_disc = d_backward(state, y, y_hat)
+    return {"loss/d/total": loss_disc, "grad_norm_d": d_update(state)}
 
 
 def g_losses(state: TrainState, batch, out, y: torch.Tensor
@@ -379,9 +450,8 @@ def g_losses(state: TrainState, batch, out, y: torch.Tensor
                                 d.n_mel_channels, d.sampling_rate,
                                 d.hop_length, d.win_length, d.mel_fmin,
                                 d.mel_fmax)
-    # gradients reach the generator through D, called as the plain module
-    # (through DDP it would arm a reduction that never comes); D's own
-    # gradients are not needed. FSDP2's sharded parameters keep
+    # gradients reach the generator through D, whose own gradients are
+    # not needed. FSDP2's sharded parameters keep
     # requires_grad: there the G backward fills D's gradients and the next
     # D step's zero_grad zeroes them.
     toggle = state.tp_mesh is None
@@ -407,80 +477,151 @@ def g_losses(state: TrainState, batch, out, y: torch.Tensor
     }
 
 
-def g_step(state: TrainState, batch, out, y: torch.Tensor
-           ) -> Dict[str, torch.Tensor]:
-    """Generator step against the (already updated) discriminator: the
-    losses of `out` (`g_losses`), value clip, AdamW at the lr the optimizer
-    holds (`write_lr`), gradients zeroed in place. Data-parallel, the
-    KL and duration terms are scaled to the global batch's normalisation
-    (module docstring); the losses returned are this rank's terms, whose
-    average over the ranks is the global batch's loss."""
-    x_mask, y_mask = out[5], out[6]
-    world = state.world
-    if world > 1:  # the mask sums of the global batch, while G's loss runs
-        mask_sums = torch.stack([x_mask.float().sum(), y_mask.float().sum()])
-        global_sums = mask_sums.clone()
-        pending = dist.all_reduce(global_sums, async_op=True)
+def g_backward(state: TrainState, batch, out, y: torch.Tensor,
+               scale: Optional[torch.Tensor] = None
+               ) -> Dict[str, torch.Tensor]:
+    """G's losses of `out` (`g_losses`), the duration and KL terms times
+    `scale` [2] when given (data-parallel: world * this rank's mask sums /
+    the global batch's, module docstring), their sum, G's gradients
+    zeroed in place, then the sum's backward. Returns the sum
+    ("loss/g/total") and the terms, detached."""
     losses = g_losses(state, batch, out, y)
-    if world > 1:
-        pending.wait()
-        scale = world * mask_sums / global_sums
+    if scale is not None:
         losses["loss/g/dur"] = losses["loss/g/dur"] * scale[0]
         losses["loss/g/kl"] = losses["loss/g/kl"] * scale[1]
     total = sum(losses.values())
     state.optim_g.zero_grad(set_to_none=False)
     total.backward()
+    metrics = {"loss/g/total": total.detach()}
+    metrics.update({k: v.detach() for k, v in losses.items()})
+    return metrics
+
+
+def g_update(state: TrainState) -> torch.Tensor:
+    """G's gradient norm, value clip, then AdamW at the lr the optimizer
+    holds (`write_lr`); returns the norm."""
     params = list(state.net_g.parameters())
-    _reduce_replicated(state, params)
     grad_norm_g = _global_norm(params)
     optimizer_step(state.optim_g, params, None,
                    state.cfg.train.grad_clip_value)
-    metrics = {"loss/g/total": total.detach()}
-    metrics.update({k: v.detach() for k, v in losses.items()})
-    metrics["grad_norm_g"] = grad_norm_g
+    return grad_norm_g
+
+
+def g_step(state: TrainState, batch, out, y: torch.Tensor
+           ) -> Dict[str, torch.Tensor]:
+    """Generator step against the (already updated) discriminator:
+    `g_backward`, then `g_update`."""
+    metrics = g_backward(state, batch, out, y)
+    metrics["grad_norm_g"] = g_update(state)
     return metrics
 
 
 def _rank_rows(state: TrainState, draws: Optional[StepDraws], b: int
                ) -> Optional[StepDraws]:
-    """This data rank's rows [r * b:(r + 1) * b] of the global draws."""
+    """This data rank's rows of `draws`: b rows are its own (`draw_step`
+    draws them), b x world the global batch's, of which it takes rows
+    [r * b:(r + 1) * b]."""
     if draws is None or state.data_world == 1:
         return draws
     lo = state.data_rank * b
     rows = []
     for v in draws:
-        if v is not None and v.shape[0] != b * state.data_world:
-            raise ValueError(f"draws of {v.shape[0]} rows for a global batch "
-                             f"of {b} x {state.data_world}")
-        rows.append(None if v is None else v[lo:lo + b])
+        if v is not None and v.shape[0] == b * state.data_world:
+            v = v[lo:lo + b]
+        elif v is not None and v.shape[0] != b:
+            raise ValueError(f"draws of {v.shape[0]} rows for {b} rows a "
+                             f"rank of {state.data_world}")
+        rows.append(v)
     return StepDraws(*rows)
 
 
-def _average_losses(state: TrainState, metrics: Dict[str, torch.Tensor]
-                    ) -> None:
-    """The losses in `metrics`, averaged over the ranks in one collective:
-    the global batch's values (the gradient norms are already global)."""
-    keys = [k for k in metrics if k.startswith("loss/")]
-    stacked = torch.stack([metrics[k].float() for k in keys])
-    dist.all_reduce(stacked)
-    stacked /= state.world
-    metrics.update(zip(keys, stacked.unbind()))
+def _forward(state: TrainState, batch: Dict[str, torch.Tensor],
+             draws: Optional[StepDraws]):
+    """(the prepped batch, the generator forward's tuple, the real
+    slice)."""
+    batch = prep_batch(batch, state.cfg)
+    out = g_forward(state, batch, _rank_rows(state, draws,
+                                             batch["x"].shape[0]))
+    return batch, out, real_slice(state, batch, out[4])
+
+
+Stage = Callable[[], Optional[Dict[str, torch.Tensor]]]
+
+
+def step_stages(state: TrainState, batch: Dict[str, torch.Tensor],
+                draws: Optional[StepDraws] = None) -> List[Stage]:
+    """The step as three stages over one context, for `drive`: (1) the
+    forward and D's backward, (2) D's update and G's backward, (3) G's
+    update and the metrics. A data-parallel state's stages 1 and 2 end
+    at the fill of the buffer their collective reduces (module
+    docstring); a plain state's do not, and its stages are `d_step` then
+    `g_step`, op for op. The last stage returns the metrics as 0-d
+    tensors, the others None."""
+    ctx: Dict[str, Any] = {}
+    reduced = state.group is not None
+
+    def forward_d():
+        ctx["batch"], out, y = _forward(state, batch, draws)
+        ctx["out"], ctx["y"] = out, y
+        ctx["loss/d/total"] = d_backward(state, y, out[0].transpose(1, 2))
+        if reduced:
+            # sum(x_mask) and sum(z_mask), summed over the ranks
+            ctx["mask_sums"] = torch.stack([out[5].float().sum(),
+                                            out[6].float().sum()])
+            _fill(state, "d", state.net_d.parameters(),
+                  ctx["loss/d/total"].float().reshape(1), ctx["mask_sums"])
+
+    def update_d_backward_g():
+        ctx["grad_norm_d"] = d_update(state)
+        scale = (state.world * ctx["mask_sums"]
+                 / state.grad_buffers["d"][-2:] if reduced else None)
+        ctx["losses"] = g_backward(state, ctx["batch"], ctx["out"], ctx["y"],
+                                   scale)
+        if reduced:
+            _fill(state, "g", state.net_g.parameters(),
+                  torch.stack([v.float() for v in ctx["losses"].values()]))
+
+    def update_g():
+        grad_norm_g = g_update(state)
+        losses = ctx["losses"]
+        metrics = {"loss/d/total": ctx["loss/d/total"],
+                   "grad_norm_d": ctx["grad_norm_d"]}
+        if reduced:
+            # the global batch's, copied out: the next step writes the
+            # buffers again
+            summed = torch.cat([state.grad_buffers["d"][-3:-2],
+                                state.grad_buffers["g"][-len(losses):]])
+            metrics["loss/d/total"] = summed[0]
+            losses = dict(zip(losses, summed[1:].unbind()))
+        metrics.update(losses)
+        metrics["grad_norm_g"] = grad_norm_g
+        ctx.clear()
+        return metrics
+
+    return [forward_d, update_d_backward_g, update_g]
+
+
+def drive(state: TrainState, run: Callable[[int], Any], n: int) -> Any:
+    """Part i of `n` as `run(i)`, in order, and for a data-parallel state
+    collective i (`all_reduce_buffer`) between parts i and i + 1; returns
+    the last part's result. The eager step and the step graphs' warm-ups,
+    captures and replays all run a step so: a part is a stage, or a plain
+    state's three stages in one."""
+    out = None
+    for i in range(n):
+        if i and state.group is not None:
+            all_reduce_buffer(state, i - 1)
+        out = run(i)
+    return out
 
 
 def step_body(state: TrainState, batch: Dict[str, torch.Tensor],
               draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
     """One D step then one G step against the updated D, at the lr the
-    optimizers hold, as 0-d metric tensors; what a CUDA graph of the step
-    holds. It leaves `state.step` and the lr to its caller."""
-    batch = prep_batch(batch, state.cfg)
-    out = g_forward(state, batch, _rank_rows(state, draws,
-                                             batch["x"].shape[0]))
-    y = real_slice(state, batch, out[4])
-    metrics = d_step(state, y, out[0].transpose(1, 2))
-    metrics.update(g_step(state, batch, out, y))
-    if state.world > 1:
-        _average_losses(state, metrics)
-    return metrics
+    optimizers hold, as 0-d metric tensors: `step_stages` through
+    `drive`. It leaves `state.step` and the lr to its caller."""
+    stages = step_stages(state, batch, draws)
+    return drive(state, lambda i: stages[i](), len(stages))
 
 
 def train_step_eager(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -502,14 +643,15 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     "spec_lengths", optionally "spec", and "sid" [B] for a multi-speaker
     model). Returns the JAX package's metrics as 0-d tensors (reading
     them waits for the device). Data-parallel, `batch` is this rank's rows
-    and `draws` the global batch's; the metrics are the global batch's,
-    equal on every rank.
+    and `draws` its own rows or the global batch's (`StepDraws`); the
+    metrics are the global batch's, equal on every rank.
 
-    On a card, a state with a world of 1 steps through its CUDA graphs,
-    one per batch signature (`train.graphs.TrainGraphs`: eager warm-up
-    steps, then a capture, then replays); on the CPU the body runs
-    directly and the signature's key is kept. A data-parallel state (DDP
-    or FSDP2) steps eagerly: capturing the collectives is not done."""
+    On a card, a state steps through its CUDA graphs, one set per batch
+    signature (`train.graphs.TrainGraphs`: eager warm-up steps, then a
+    capture, then replays; a data-parallel state a graph a stage, with
+    its collectives between); on the CPU the body runs directly and the
+    signature's key is kept. A state under FSDP2 steps eagerly: its
+    all-gathers run inside each layer."""
     from mb_istft_vits_torch.train.graphs import TrainGraphs, routed
 
     if not routed(state):

@@ -56,7 +56,8 @@ RENAMED = {
     "parallel.mesh.batch_sharding":
         "a jax `NamedSharding`; `shard_batch` places the rows itself",
     "parallel.mesh.replicated_sharding":
-        "a jax `NamedSharding`; DDP keeps the weights replicated",
+        "a jax `NamedSharding`; the step's all-reduce keeps the weights "
+        "replicated",
     "parallel.tp.opt_state_shardings":
         "FSDP2's AdamW moments are DTensors of their parameter's placement",
     "train.checkpoint.save_checkpoint":

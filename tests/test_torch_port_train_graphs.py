@@ -266,8 +266,10 @@ def _free_port() -> int:
 
 
 def test_a_data_parallel_state_is_not_routed(tmp_path):
-    """Under DDP (a gloo group of one here) the step runs eagerly: no
-    TrainGraphs, no key, and the step the plain state's."""
+    """(Named for the eager route such a state once took.) A data-parallel
+    state of a one-rank gloo group is routed: its step goes through
+    `TrainGraphs` in three stages with their two collectives, its key
+    records world 1 and gloo, and its step is the plain state's."""
     cfg = _tiny_config(tmp_path)
     batch = _batch(cfg)
     plain = tstep.create_train_state(cfg, torch.device("cpu"), seed=2)
@@ -279,12 +281,17 @@ def test_a_data_parallel_state_is_not_routed(tmp_path):
     try:
         state = shard_train_state_dp(
             tstep.create_train_state(cfg, torch.device("cpu"), seed=2))
-        assert not tgraphs.routed(state)
+        assert tgraphs.routed(state)
+        assert len(tstep.step_stages(state, batch)) == 3
         torch.manual_seed(4)
         got = tstep.train_step(state, batch, tstep.draw_step(state, batch))
     finally:
         dist.destroy_process_group()
-    assert state.graphs is None and state.step == 1
+    (key,) = state.graphs.keys()
+    assert key[7:9] == (1, "gloo")
+    assert plain.graphs.keys()[0][7:9] == (1, None)
+    assert plain.grad_buffers == {}  # no collective, no flat buffer
+    assert state.step == 1 and set(state.grad_buffers) == {"d", "g"}
     for k in want:
         assert abs(float(got[k]) - float(want[k])) <= 1e-5 * max(
             1.0, abs(float(want[k]))), k
@@ -419,13 +426,13 @@ def test_replays_add_the_launches_their_capture_counted():
                         "mas_path": 0}
     buf = torch.zeros(3)
     metrics = torch.tensor([1.5, 2.0])
-    g = tgraphs._TrainGraph(_StubGraph(), [buf, None], metrics,
+    g = tgraphs._TrainGraph([_StubGraph()], [buf, None], metrics,
                             ("loss/d/total", "loss/g/gen"),
                             (torch.float32, torch.bfloat16), launches)
     for i in range(3):
-        out = g.replay([torch.full((3,), float(i)), None])
+        out = g.replay(None, [torch.full((3,), float(i)), None])
         assert torch.equal(buf, torch.full((3,), float(i)))
-    assert g.graph.replays == 3
+    assert g.graphs[0].replays == 3
     assert mas.launch_counts == {"mas_fused": 8, "mas_fwd": 3, "mas_bwd": 3,
                                  "mas_path": 0}
     assert out["loss/g/gen"].dtype == torch.bfloat16
