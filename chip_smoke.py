@@ -111,11 +111,22 @@ Phases, one JSON line each:
            equal to the plain CLI's; and the error NCCL gives two ranks
            on one card
   tp       parallel.dryrun.dryrun_multichip(2) (two data-parallel ranks
-           sharing the card over gloo, through the stage graphs), then one
-           step of the 2-D sharding, eager: two ranks on cuda:0 over gloo
-           as a (1 x 2) data x model mesh, FSDP2, the dryrun's tiny model,
-           held to the single-process step; the sharded weights and
-           moments counted as in the CPU tests
+           sharing the card over gloo, through the stage graphs: the tiny
+           step, then the flagship half, the flagship in bf16 at 32 rows
+           a rank, its warm-ups and capture, its capture memory a rank)
+           beside the 2-D step at the flagship's widths: two ranks on
+           cuda:0 over gloo as a (1 x 2) data x model mesh, 8 rows, the
+           shards held by parallel/tp.py: a compared step held to the
+           single-process step at the ddp bars; 4 timed steps (2 eager
+           warm-ups, the capture of 5 stage graphs, a replay); a replay
+           bit-equal to the eager 2-D step under the deterministic
+           algorithms and within the train_graphs bars under the default
+           ones; a warm rank step of 5 graph launches, 4 collectives and
+           fewer than 25 kernel launches, its MAS kernels seen; the
+           shards and moments shard-shaped as param_shardings says; a
+           save and resume then a step equal to the uninterrupted step;
+           a rank's step ms on the graphs and eager, busy share, capture
+           s, pool bytes
   overfit  the JAX package's overfit gate (scripts/overfit_check.py) through
            the port's overfit_check.run in this process: the tiny
            multi-band config, 150 steps on one seeded batch; checks the
@@ -212,7 +223,8 @@ train_graphs, train_cli, train_data, ddp, tp and overfit run, a graph
 replay counting the launches of its capture, the spawned ranks' own counts
 added, and serving,
 times, bounds; `launches_by_path` beside them: the main path's, those of
-it in the ddp and tp ranks' step-graph replays (`main.ddp_replays`), and
+it in the ddp ranks' step-graph replays (`main.ddp_replays`) and the tp
+ranks' (`main.tp_replays`), and
 each measurement tool's of the bench phase, not added to `launches`;
 `launches` counts the first
 kernel of a port and `launches_by_kernel` each of its kernels: mas_bwd is
@@ -2401,16 +2413,18 @@ DDP_COMPARE = ({"enabled": False}, {"enabled": True, "deterministic": True})
 # launches of the MAS kernels in the ranks this script spawns (each child
 # counts its own), added to the main path's counts
 CHILD_LAUNCHES = {}
-# those of them in the data-parallel ranks' replays of the step graphs
-REPLAYED_LAUNCHES = {}
+# those of them in the ranks' replays of the step graphs, by path: the
+# data-parallel ranks' (ddp) and the 2-D ranks' (tp)
+REPLAYED_LAUNCHES = {"main.ddp_replays": {}, "main.tp_replays": {}}
 
 
-def _add_child_launches(ranks):
+def _add_child_launches(ranks, replays=None):
     for r in ranks:
         for k, v in r.get("launch_counts", {}).items():
             CHILD_LAUNCHES[k] = CHILD_LAUNCHES.get(k, 0) + v
         for k, v in r.get("replayed_launches", {}).items():
-            REPLAYED_LAUNCHES[k] = REPLAYED_LAUNCHES.get(k, 0) + v
+            path = REPLAYED_LAUNCHES[replays]
+            path[k] = path.get(k, 0) + v
 
 
 def _compare_step(metrics, g, d, ref_metrics, ref_state, init_g):
@@ -2658,7 +2672,7 @@ def phase_ddp(root):
                      if "Duplicate GPU" in ln or "Error" in ln]
             nccl = {"refused": True, "error": lines[-3:]}
     ranks_s = time.perf_counter() - t0
-    _add_child_launches(ranks)
+    _add_child_launches(ranks, "main.ddp_replays")
     r0, r1 = ranks
     compared = [_compare_step(r0["compared"][i]["metrics"], r0["g"][i],
                               r0["d"][i], metrics, state, g0)
@@ -2792,48 +2806,77 @@ def phase_ddp(root):
         raise AssertionError(f"ddp checks failed: {failed}")
 
 
+TP_ROWS = DDP_ROWS  # the (1 x 2) mesh's one data replica: 8 rows
+TP_KERNEL_LAUNCHES = 25  # a warm replayed 2-D rank step launches fewer
+# rows a rank of the dryrun's flagship half (JAX's batch 64 over its two
+# data-parallel ranks), run beside the 2-D step
+TP_FLAGSHIP_ROWS = 32
+
+
 def phase_tp():
-    """`parallel.dryrun.dryrun_multichip(2)` on the card (two DDP ranks
-    sharing cuda:0 over gloo) and, beside it, one step of the 2-D sharding
-    (`parallel.tp`): two ranks on cuda:0 over gloo as a (1 x 2) data x
-    model mesh, both nets under FSDP2, the dryrun's tiny model, held to the
-    single-process step (the ddp phase's bars); counts the sharded weights
-    and the moments that carry their placement."""
+    """`parallel.dryrun.dryrun_multichip(2)` on the card (two data-parallel
+    ranks sharing cuda:0 over gloo: the tiny step, then the flagship half,
+    the flagship at TP_FLAGSHIP_ROWS rows a rank in bf16, its warm-up
+    steps and stage graphs' capture) and, beside it, the 2-D step
+    (`parallel.tp`) at the flagship's widths: two ranks on cuda:0 over
+    gloo as a (1 x 2) data x model mesh, TP_ROWS rows (the worker's steps,
+    as in the ddp phase): a compared step (lr 10 / eps 10, every dropout
+    off, seeded draws, cuDNN deterministic) held to the single-process
+    step at the ddp phase's bars; DDP_STEPS timed steps (two eager
+    warm-ups, the capture of the five stage graphs, a replay); each
+    route timed and profiled; a replay held to the eager 2-D step bit for
+    bit under the deterministic algorithms and within the train_graphs
+    bars under the default ones; the worker's `tp_checks` (5 stages, 4
+    collectives a replayed step, a save and resume then a step equal to
+    the uninterrupted step). Checks the ranks bit-identical after every
+    step, one MAS launch a rank a step, 5 graph launches and fewer than
+    TP_KERNEL_LAUNCHES kernel launches a warm rank step, the profiled MAS
+    kernels equal to the counts, the shards and moments shard-shaped as
+    `param_shardings` says."""
+    import concurrent.futures
     import dataclasses
 
     import torch
 
+    from mb_istft_vits_torch.config import Config
     from mb_istft_vits_torch.parallel import param_shardings
-    from mb_istft_vits_torch.parallel.dryrun import (
-        dryrun_multichip,
-        tiny_batch,
-        tiny_config,
-    )
+    from mb_istft_vits_torch.parallel.dryrun import dryrun_multichip
     from mb_istft_vits_torch.weights import load_generator_pth
 
-    import concurrent.futures
-
     worker = _dist_worker()
+    deterministic = GRAPH_COMPARE[1]
+    cfg = Config.from_json(CONFIG)
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, p_dropout=0.0),
+        train=dataclasses.replace(cfg.train, batch_size=TP_ROWS))
+    cmp_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, learning_rate=10.0, eps=10.0))
+    # the timed steps: the config's lr and the compared eps (as in ddp)
+    timed_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, eps=cmp_cfg.train.eps))
+    init = worker.seeded_state(cfg, "cpu", DDP_SEED)
+    g0 = {k: v.clone() for k, v in init.net_g.state_dict().items()}
+    want = {f"{p}.{k}": dim for p, net in (("g", init.net_g),
+                                           ("d", init.net_d))
+            for k, dim in param_shardings(net, 2).items() if dim is not None}
+    del init
+    batch = {k: v.cpu() for k, v in
+             train_batch(cfg, TP_ROWS, seed=4).items()}
+    draws = _draws(cfg, batch, seed=5)
+    single, single_metrics = _single_step(cmp_cfg, DDP_SEED, batch, draws,
+                                          deterministic)
+    torch.cuda.empty_cache()
     pool = concurrent.futures.ThreadPoolExecutor(1)
     t0 = time.perf_counter()
     # its two ranks run beside the 2-D step's two, all on the card
     dry_run = pool.submit(dryrun_multichip, 2, device="cuda")
-    cfg = tiny_config()
-    cfg = dataclasses.replace(
-        cfg, model=dataclasses.replace(cfg.model, p_dropout=0.0),
-        train=dataclasses.replace(cfg.train, learning_rate=10.0, eps=10.0,
-                                  batch_size=2))
-    g0 = {k: v.clone() for k, v in worker.seeded_state(
-        cfg, "cpu", 0).net_g.state_dict().items()}
-    batch = tiny_batch(2)
-    draws = _draws(cfg, batch, seed=6)
-    tp_cudnn = {"enabled": True, "deterministic": True}
-    single, single_metrics = _single_step(cfg, 0, batch, draws, tp_cudnn)
     with tempfile.TemporaryDirectory() as out:
         ranks = worker.launch(dict(
-            world=2, n_model=2, device="cuda:0", backend="gloo", timeout=300,
-            cfg=cfg, seed=0, batch=batch, draws=draws,
-            dp_dropout=0.0, compare=[tp_cudnn]), out, 600)
+            world=2, n_model=2, device="cuda:0", backend="gloo", timeout=600,
+            cfg=cmp_cfg, seed=DDP_SEED, batch=batch, draws=draws,
+            dp_dropout=0.0, compare=[deterministic], steps=DDP_STEPS,
+            restart=timed_cfg, routes=DDP_ROUTE_STEPS,
+            graph_compare=GRAPH_COMPARE, checks={}), out, 900)
         g = load_generator_pth(os.path.join(out, "G_1.pth"))
         d = torch.load(os.path.join(out, "D_1.pth"), weights_only=True)[
             "model"]
@@ -2841,38 +2884,120 @@ def phase_tp():
     dry = dry_run.result()
     pool.shutdown()
     t2 = time.perf_counter()
-    _add_child_launches(ranks + dry["ranks"])
+    _add_child_launches(ranks, "main.tp_replays")
+    _add_child_launches(dry["ranks"])
     ok_step, worst = _compare_step(ranks[0]["compared"][0]["metrics"], g, d,
                                    single_metrics, single, g0)
-    want = {f"{p}.{k}": dim for p, net in (("g", single.net_g),
-                                           ("d", single.net_d))
-            for k, dim in param_shardings(net, 2).items() if dim is not None}
-    sharded = ranks[0]["sharded"]
-    conv_dim0 = [k for k, dim in want.items() if dim == 0
-                 and k.endswith(("weight", "weight_v"))]
+    del single, g, d
+    routes_want = (["eager"] * WARMUP_ITERS + ["capture"]
+                   + ["replay"] * (DDP_STEPS - WARMUP_ITERS - 1))
+    all_steps = [r["compared"] + r["steps"] for r in ranks]
+    default = [r["graph_compare"][0] for r in ranks]
+    det = [r["graph_compare"][1] for r in ranks]
+    held = [_hold_replay(c) for c in default]
+    routes = {name: [r["routes"][name] for r in ranks]
+              for name in ("graph", "eager")}
+    tp = [r["checks"] for r in ranks]
+    (flag,) = dry["flagship"]
+
+    def shard_shaped(sharded):
+        if sorted(sharded) != sorted(want):
+            return False
+        for k, leaf in sharded.items():
+            shard = list(leaf["whole"])
+            shard[want[k]] //= 2
+            if leaf["shard"] != shard or leaf["moments"] != [shard, shard]:
+                return False
+        return True
+
     checks = {
         "dryrun_ok": dry["backend"] == "gloo" and dry["kind"] == "data=2"
         and dry["route"] == "graphs",
+        "dryrun_flagship_captured": flag["kind"] == "data=2"
+        and flag["captured"] and flag["graphs_a_step"] == 3
+        and flag["rows_per_rank"] == TP_FLAGSHIP_ROWS,
         "step_matches_single_process": ok_step,
-        "ranks_bit_identical": ranks[0]["compared"][0]["digest"]
-        == ranks[1]["compared"][0]["digest"],
-        "sharded_as_param_shardings": sorted(sharded) == sorted(want),
-        "ten_conv_weights_on_dim_0": len(conv_dim0) >= 10,
-        "moments_carry_the_placement": ranks[0]["moments"] == sharded,
-        "mas_once_per_rank": all(r["compared"][0]["mas_launches"] == 1
-                                 for r in ranks),
+        "ranks_bit_identical_every_step": all(
+            a["digest"] == b["digest"] for a, b in zip(*all_steps)),
+        "metrics_equal_across_ranks": all(
+            a["metrics"] == b["metrics"] for a, b in zip(*all_steps)),
+        "mas_once_per_rank_per_step": all(
+            s["mas_launches"] == 1 for steps in all_steps for s in steps),
+        "timed_steps_warm_capture_replay": all(
+            [st["route"] for st in r["steps"]] == routes_want
+            for r in ranks),
+        "timed_steps_finite": all(math.isfinite(v) for r in ranks
+                                  for s in r["steps"]
+                                  for v in s["metrics"].values()),
+        "replay_bit_equal_to_eager_deterministic": all(
+            c["replay"]["bit_equal"] for c in det),
+        "replay_losses_and_d_within_bars_default": all(
+            h["losses_and_d"] for h in held),
+        "replay_g_updates_within_bar_or_eager_noise_default": all(
+            h["g_updates"] for h in held),
+        "default_compared_on_the_timed_steps_graphs": all(
+            not c["captured"] and c["captures"] == 0 for c in default),
+        "five_graphs_a_step_replayed": all(
+            c["graphs_a_step"] == 5 and c["replay_route"] == "replay"
+            for c in default + det) and all(
+            c["captures"] == 1 for c in det),
+        "replay_mas_once": all(c["replay_mas_launches"] == 1
+                               for c in default + det),
+        "warm_step_5_graph_launches": all(
+            r["launches"]["cuda_graph_launch_calls"] == 5
+            for r in routes["graph"]),
+        "warm_step_few_kernel_launches": all(
+            r["launches"]["cuda_launch_kernel_calls"] < TP_KERNEL_LAUNCHES
+            for r in routes["graph"]),
+        "routes_mas_once_a_step_and_seen": all(
+            r["mas_kernels_seen"] and set(r["mas_launches_per_step"]) == {1}
+            for rs in routes.values() for r in rs),
+        "routed_in_5_stages": all(c["routed"] and c["stages"] == 5
+                                  for c in tp),
+        "replayed_step_4_collectives": all(
+            c["collectives"] == {"all_reduce": 2, "all_gather": 2}
+            and c["counted_route"] == "replay" for c in tp),
+        "key_records_n_model": all(
+            c["n_model"] == 2 and all(k[9] == 2 for k in c["keys"])
+            for c in tp),
+        "shards_and_moments_shard_shaped": all(
+            shard_shaped(r["sharded"]) for r in ranks),
+        "ten_conv_weights_on_dim_0": len([
+            k for k, dim in want.items()
+            if dim == 0 and k.endswith(("weight", "weight_v"))]) >= 10,
+        "save_resume_step_equals_uninterrupted": all(
+            c["resumed"] == c["saved_at"]
+            and c["resumed_step_equals_uninterrupted"]
+            and c["resumed_finite"] for c in tp),
     }
     emit("tp", dryrun=dict(dry, seconds=t2 - t0),
-         step_route="eager: an FSDP2 state is not captured (its "
-                    "all-gathers run inside each layer)",
-         mesh="data 1 x model 2, gloo, both ranks on cuda:0 (gloo runs "
-              "FSDP2's c10d collectives on CUDA tensors; chosen, not a "
-              "fallback)", seconds_2d=t1 - t0,
-         sharded_weights=len(sharded), conv_weights_dim_0=len(conv_dim0),
-         sharded_moments=2 * len(ranks[0]["moments"]),
-         step_ms_per_rank={r["rank"]: r["compared"][0]["host_ms"]
+         flagship_half={
+             "rows_per_rank": flag["rows_per_rank"],
+             "capture_bytes_per_rank": flag["pool_bytes"],
+             "capture_seconds_per_rank": flag["capture_seconds"],
+             "peak_bytes_per_rank": flag["peak_bytes"]},
+         step_route="graphs: a rank's 2-D step is 5 CUDA graphs (the stages "
+                    "of train/step.py) with its 2 all-reduces and 2 "
+                    "all-gathers run eagerly between them",
+         nvidia_smi=nvidia_smi(),
+         mesh="data 1 x model 2, gloo, both ranks on cuda:0 (one card "
+              "shared: the step times are not a scaling number)",
+         rows=TP_ROWS, seconds_2d=t1 - t0,
+         routes={name: {r["rank"]: {k: r["routes"][name][k] for k in (
+             "step_ms_events", "launches", "device_busy_share",
+             "device_ms")} for r in ranks} for name in ("graph", "eager")},
+         graphs={r["rank"]: r["routes"]["graphs"] for r in ranks},
+         graph_compare={"default": default, "deterministic": det},
+         timed_step_routes=[st["route"] for st in ranks[0]["steps"]],
+         step_ms_per_rank={r["rank"]: [s["host_ms"] for s in r["steps"]]
                            for r in ranks},
-         worst=worst, checks=checks)
+         compared_step_ms_per_rank={r["rank"]: r["compared"][0]["host_ms"]
+                                    for r in ranks},
+         rank_seconds_by_part={r["rank"]: r["seconds"] for r in ranks},
+         tp_checks=[{k: v for k, v in c.items() if k != "keys"}
+                    for c in tp],
+         sharded_weights=len(want), worst=worst,
+         checks=checks)
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"tp checks failed: {failed}")
@@ -3715,7 +3840,8 @@ def main() -> int:
                                    for k in KERNELS_OF[name]},
             "launches_by_path": {
                 "main": launches[name],
-                "main.ddp_replays": REPLAYED_LAUNCHES.get(name, 0), **{
+                **{path: counts.get(name, 0)
+                   for path, counts in REPLAYED_LAUNCHES.items()}, **{
                     f"bench.{tool}": counts.get(name, 0)
                     for tool, counts in BENCH_LAUNCHES.items()}},
             "shape": row["shape"], "bit_exact": all(

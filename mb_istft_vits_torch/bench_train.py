@@ -283,7 +283,6 @@ def run(args, device) -> int:
     from mb_istft_vits_torch.data.prefetch import device_prefetch
     from mb_istft_vits_torch.infer.graphs import WARMUP_ITERS
     from mb_istft_vits_torch.parallel import shard_train_state_dp
-    from mb_istft_vits_torch.train.graphs import routed
     from mb_istft_vits_torch.train.step import (create_train_state,
                                                 train_step, train_step_eager)
 
@@ -302,7 +301,7 @@ def run(args, device) -> int:
     state = shard_train_state_dp(create_train_state(cfg, device, seed=0))
 
     # the warm-up steps and the capture, up to the first replay
-    first_steps = 1 + (WARMUP_ITERS if on_card and routed(state) else 0)
+    first_steps = 1 + (WARMUP_ITERS if on_card else 0)
     t0 = time.perf_counter()
     for i in range(first_steps):
         metrics = train_step(state, batch)

@@ -12,8 +12,6 @@ from mb_istft_vits_torch.parallel.mesh import (  # noqa: F401
 )
 from mb_istft_vits_torch.parallel.tp import (  # noqa: F401
     create_2d_mesh,
-    full_state_dicts,
-    full_tensor,
     mesh_shape,
     param_shardings,
     param_spec,

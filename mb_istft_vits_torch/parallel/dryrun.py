@@ -1,5 +1,6 @@
-"""One whole training step over n ranks on tiny shapes (the analog of the
-JAX package's `__graft_entry__.dryrun_multichip`).
+"""One whole training step over n ranks on tiny shapes, then the
+flagship's step graphs captured on each production layout (the analog of
+the JAX package's `__graft_entry__.dryrun_multichip`).
 
     python -m mb_istft_vits_torch.parallel.dryrun N [--device cuda|cpu]
 
@@ -11,6 +12,15 @@ a rank. Ranks use NCCL on distinct cards, and gloo when they share one
 card or run on the CPU. It checks that every rank ends with the same
 finite losses and the same weights, and prints one line.
 
+Then, unless MBIV_DRYRUN_FLAGSHIP=0, the same ranks build the flagship
+`ljs_mb_istft_vits` at its batch (64, global) in bf16 (`fp16_run`) on
+JAX's synthetic batch (t_spec 400, t_x 192) and take, on each layout
+JAX's code builds for n (the tiny step's, and for a 2-D one also the 1-D
+data=n layout), the step graphs' warm-up steps and capture, with no
+timed replay: a capture is what a CUDA graph has in place of JAX's
+compile. Each layout prints JAX's line, "captured" for "compiled". On
+the CPU each layout runs the step body once and captures nothing.
+
 The launcher (`start_ranks`, `finish_ranks`, `run_ranks`) and a rank's
 set-up (`rank_group`, `shard_state`, `rank_rows`, `digest`) are the ones
 the port's multi-rank tests and chip_smoke.py drive their ranks with.
@@ -20,7 +30,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import datetime
+import gc
 import hashlib
 import json
 import math
@@ -28,8 +40,10 @@ import os
 import socket
 import subprocess
 import sys
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -38,6 +52,9 @@ from mb_istft_vits_torch.config import Config, DataConfig, ModelConfig, \
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+FLAGSHIP_CONFIG = os.path.join(_REPO, "configs", "ljs_mb_istft_vits.json")
+# JAX's flagship half: the config's batch, these frames and tokens
+FLAGSHIP_SHAPE = {"batch": None, "t_spec": 400, "t_x": 192}
 
 
 def tiny_config() -> Config:
@@ -76,11 +93,40 @@ def tiny_batch(b: int, t_x: int = 12, t_spec: int = 32, hop: int = 64,
     }
 
 
+def flagship_batch(cfg: Config, b: int, t_spec: int, t_x: int
+                   ) -> Dict[str, torch.Tensor]:
+    """JAX's synthetic flagship batch of b rows (numpy seed 0: the ids,
+    then the int16 PCM), on the CPU."""
+    d = cfg.data
+    rng = np.random.RandomState(0)
+    t_wav = t_spec * d.hop_length + (d.filter_length - d.hop_length)
+    x = rng.randint(1, cfg.model.n_vocab, size=(b, t_x)).astype(np.int32)
+    wav = rng.randint(-16000, 16000, (b, t_wav, 1)).astype(np.int16)
+    return {"x": torch.from_numpy(x),
+            "x_lengths": torch.full((b,), t_x, dtype=torch.int32),
+            "spec_lengths": torch.full((b,), t_spec, dtype=torch.int32),
+            "wav": torch.from_numpy(wav),
+            "wav_lengths": torch.full((b,), t_spec * d.hop_length,
+                                      dtype=torch.int32)}
+
+
 def layout(n_devices: int):
     """(n_data, n_model) of the dryrun's mesh for n ranks."""
     if n_devices >= 4 and n_devices % 2 == 0:
         return n_devices // 2, 2
     return n_devices, 1
+
+
+def layouts(n_devices: int) -> List[Tuple[int, int]]:
+    """The flagship half's layouts, as JAX's builds them: the tiny step's
+    mesh, and after a 2-D one the 1-D data=n mesh."""
+    first = layout(n_devices)
+    return [first] + ([(n_devices, 1)] if first[1] > 1 else [])
+
+
+def kind(n_data: int, n_model: int) -> str:
+    return (f"data={n_data} x model={n_model}" if n_model > 1
+            else f"data={n_data}")
 
 
 def free_port() -> int:
@@ -159,8 +205,8 @@ def rank_group(address: str, world: int, rank: int, device: str,
 
 
 def shard_state(state, n_model: int):
-    """`state` data-parallel when `n_model` is 1, else under FSDP2
-    over the (world / n_model) x n_model mesh. Returns `state`."""
+    """`state` data-parallel when `n_model` is 1, else sharded over the
+    (world / n_model) x n_model mesh. Returns `state`."""
     from mb_istft_vits_torch.parallel import (
         create_2d_mesh,
         shard_train_state_dp,
@@ -183,23 +229,76 @@ def rank_rows(batch: Dict[str, torch.Tensor], state
 
 
 def digest(nets) -> str:
-    """A hash of every weight's bits (FSDP2's shards gathered whole: a
-    collective then); equal weights, equal digests."""
-    from mb_istft_vits_torch.parallel import full_tensor
-
+    """A hash of every weight's bits; equal weights, equal digests."""
     h = hashlib.sha1()
     for net in nets:
         for k, v in sorted(net.state_dict().items()):
             h.update(k.encode())
-            h.update(full_tensor(v).detach().cpu().reshape(-1)
-                     .view(torch.uint8).numpy().data)
+            h.update(v.detach().cpu().reshape(-1).view(torch.uint8)
+                     .numpy().data)
     return h.hexdigest()
 
 
+def run_flagship(world: int, device: torch.device, shape: dict
+                 ) -> List[dict]:
+    """This rank's part of the flagship half: for each of `layouts(world)`
+    a fresh flagship state (seed 0, bf16) sharded so, stepped on its rows
+    of JAX's batch at `shape` ({"batch" (None: the config's), "t_spec",
+    "t_x"}) through `train_step`: on a card its warm-up steps and its
+    capture, on the CPU one step. Returns per layout the shapes, G's
+    parameter count, the last step's metrics, a digest of the weights,
+    and the graphs' stages, capture seconds, pool bytes and the card's
+    peak reserved bytes (None on the CPU)."""
+    from mb_istft_vits_torch.infer.graphs import WARMUP_ITERS
+    from mb_istft_vits_torch.train.step import create_train_state, train_step
+
+    cfg = Config.from_json(FLAGSHIP_CONFIG)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, fp16_run=True))
+    b = shape.get("batch") or cfg.train.batch_size
+    batch = flagship_batch(cfg, b, shape["t_spec"], shape["t_x"])
+    out = []
+    on_card = device.type == "cuda"
+    for n_data, n_model in layouts(world):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        state = shard_state(create_train_state(cfg, device, seed=0), n_model)
+        rows = rank_rows(batch, state)
+        steps = WARMUP_ITERS + 1 if on_card else 1
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            metrics = train_step(state, rows)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        g = state.graphs
+        captured = g is not None and g.captures > 0
+        out.append({
+            "kind": kind(n_data, n_model), "batch": b,
+            "rows_per_rank": rows["x"].shape[0],
+            "t_spec": shape["t_spec"], "t_x": shape["t_x"],
+            "g_params": sum(p.numel() for p in state.net_g.parameters()),
+            "steps": steps, "seconds": time.perf_counter() - t0,
+            "metrics": metrics, "digest": digest((state.net_g, state.net_d)),
+            "captured": captured,
+            "graphs_a_step": list(g.graphs_a_step.values())[-1]
+            if captured else None,
+            "capture_seconds": list(g.capture_seconds.values())[-1]
+            if captured else None,
+            "pool_bytes": g.pool_bytes() if captured else None,
+            "peak_bytes": torch.cuda.max_memory_reserved(device)
+            if on_card else None})
+        del state, rows, g
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
 def run_rank(rank: int, world: int, address: str, device: str,
-             backend: str) -> dict:
-    """One rank's step; returns its losses, a digest of its weights after
-    the step and its MAS launch counts."""
+             backend: str, flagship: Optional[dict] = None) -> dict:
+    """One rank's tiny step, then the flagship half at the shape
+    `flagship` (None: skipped); returns its losses, a digest of its
+    weights after the step, the flagship half's layouts and its MAS
+    launch counts."""
     from mb_istft_vits_torch.ops import mas
     from mb_istft_vits_torch.train.step import create_train_state, train_step
 
@@ -208,21 +307,40 @@ def run_rank(rank: int, world: int, address: str, device: str,
         state = shard_state(create_train_state(tiny_config(), info.device,
                                                seed=0), layout(world)[1])
         metrics = train_step(state, rank_rows(tiny_batch(world), state))
-        return {"rank": rank, "data_rank": state.data_rank,
-                # FSDP2 steps eagerly; every other state through its graphs
-                "route": "eager" if state.graphs is None else "graphs",
-                "metrics": {k: float(v) for k, v in metrics.items()},
-                "digest": digest((state.net_g, state.net_d)),
-                "launch_counts": dict(mas.launch_counts)}
+        out = {"rank": rank, "data_rank": state.data_rank,
+               "route": "graphs" if state.graphs is not None else "eager",
+               "metrics": {k: float(v) for k, v in metrics.items()},
+               "digest": digest((state.net_g, state.net_d))}
+        del state
+        out["flagship"] = (None if flagship is None
+                           else run_flagship(world, info.device, flagship))
+        out["launch_counts"] = dict(mas.launch_counts)
+        return out
+
+
+def _agree(results: List[dict]) -> bool:
+    """Every rank's metrics and digest equal, the metrics finite."""
+    same = {json.dumps([r["metrics"], r["digest"]], sort_keys=True)
+            for r in results}
+    return len(same) == 1 and all(
+        math.isfinite(v) for v in results[0]["metrics"].values())
 
 
 def dryrun_multichip(n_devices: int, *, device: str = "cuda",
-                     timeout: float = 600.0) -> dict:
-    """Run the step over `n_devices` ranks (module docstring); raises
-    unless every rank exits 0 with the same finite losses and the same
-    weights. Returns {"kind", "backend", "route" (the step's: "graphs",
-    or "eager" under FSDP2), "loss_g", "ranks"}."""
+                     timeout: float = 600.0,
+                     flagship_shape: Optional[dict] = None) -> dict:
+    """Run the step over `n_devices` ranks, then the flagship half
+    (module docstring) at `flagship_shape` (keys of FLAGSHIP_SHAPE; None:
+    JAX's) unless MBIV_DRYRUN_FLAGSHIP=0; raises unless every rank exits
+    0 with the same finite losses and the same weights, in the tiny step
+    and on each flagship layout. Returns {"kind", "backend", "route" (the
+    step's: "graphs"), "loss_g", "ranks", "flagship" (per layout: its
+    kind, shapes, G's parameters, whether it captured, and each rank's
+    stages, capture seconds and pool bytes; [] when skipped), "lines"}."""
     n_data, n_model = layout(n_devices)
+    shape = None
+    if os.environ.get("MBIV_DRYRUN_FLAGSHIP", "1") != "0":
+        shape = dict(FLAGSHIP_SHAPE, **(flagship_shape or {}))
     if device == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass "
@@ -234,22 +352,44 @@ def dryrun_multichip(n_devices: int, *, device: str = "cuda",
         sys.executable, "-m", "mb_istft_vits_torch.parallel.dryrun",
         str(n_devices), "--rank", str(r), "--address", address,
         "--device", device if device == "cpu" else
-        f"cuda:{r if distinct else 0}", "--backend", backend],
+        f"cuda:{r if distinct else 0}", "--backend", backend,
+        "--flagship", json.dumps(shape)],
         n_devices, timeout=timeout)
     results = [json.loads(out.strip().splitlines()[-1]) for out in outs]
-    same = {json.dumps([r["metrics"], r["digest"]], sort_keys=True)
-            for r in results}
     loss_g = results[0]["metrics"]["loss/g/total"]
-    if len(same) != 1 or not all(
-            math.isfinite(v) for v in results[0]["metrics"].values()):
+    if not _agree(results):
         raise AssertionError(f"ranks disagree or are not finite: {results}")
-    kind = (f"data={n_data} x model={n_model}" if n_model > 1
-            else f"data={n_data}")
     route = results[0]["route"]
-    print(f"dryrun_multichip({n_devices}): ok ({kind}, {backend}, step "
-          f"route {route}), loss_g={loss_g:.4f}", flush=True)
-    return {"kind": kind, "backend": backend, "route": route,
-            "loss_g": loss_g, "ranks": results}
+    lines = [f"dryrun_multichip({n_devices}): ok ({kind(n_data, n_model)}, "
+             f"{backend}, step route {route}), loss_g={loss_g:.4f}"]
+    flagship = []
+    for i in range(len(layouts(n_devices)) if shape else 0):
+        per_rank = [r["flagship"][i] for r in results]
+        if not _agree(per_rank):
+            raise AssertionError(f"flagship {per_rank[0]['kind']}: ranks "
+                                 f"disagree or are not finite: {per_rank}")
+        f = per_rank[0]
+        done = ("captured" if all(r["captured"] for r in per_rank)
+                else "ran")
+        how = (f"{f['steps'] - 1} warm-up steps and the capture of "
+               f"{f['graphs_a_step']} stage graph(s)" if done == "captured"
+               else "the step body once, nothing captured")
+        lines.append(
+            f"dryrun_multichip({n_devices}): flagship ljs_mb_istft_vits "
+            f"b{f['batch']} bf16 t_spec={f['t_spec']} {done} on "
+            f"{f['kind']} ({f['g_params'] / 1e6:.1f}M G params; {how})")
+        flagship.append(dict(
+            {k: f[k] for k in ("kind", "batch", "rows_per_rank", "t_spec",
+                               "t_x", "g_params", "captured",
+                               "graphs_a_step")},
+            **{k: [r[k] for r in per_rank] for k in (
+                "capture_seconds", "pool_bytes", "peak_bytes",
+                "seconds")}))
+    for line in lines:
+        print(line, flush=True)
+    return {"kind": kind(n_data, n_model), "backend": backend,
+            "route": route, "loss_g": loss_g, "ranks": results,
+            "flagship": flagship, "lines": lines}
 
 
 def main(argv=None) -> int:
@@ -260,12 +400,14 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)  # a rank of the dryrun
     ap.add_argument("--address", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--backend", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--flagship", default="null", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.rank is None:
         dryrun_multichip(args.n_devices, device=args.device)
     else:
         print(json.dumps(run_rank(args.rank, args.n_devices, args.address,
-                                  args.device, args.backend)), flush=True)
+                                  args.device, args.backend,
+                                  json.loads(args.flagship))), flush=True)
     return 0
 
 

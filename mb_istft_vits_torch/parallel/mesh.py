@@ -179,6 +179,17 @@ def shard_train_state_dp(state):
     `state`."""
     if not dist.is_initialized():
         return state
+    broadcast_weights(state)
+    state.dp_group = dist.group.WORLD
+    state.data_rank, state.data_world = dist.get_rank(), dist.get_world_size()
+    if state.graphs is not None:
+        state.graphs.clear()
+    return state
+
+
+def broadcast_weights(state) -> None:
+    """Rank 0's weights of both nets written into every rank's, in place
+    (one broadcast of a flat buffer a net)."""
     with torch.no_grad():
         for net in (state.net_g, state.net_d):
             params = [p.detach() for p in net.parameters()]
@@ -186,8 +197,3 @@ def shard_train_state_dp(state):
             dist.broadcast(flat, 0)
             torch._foreach_copy_(params, [v.view_as(p) for v, p in zip(
                 flat.split([p.numel() for p in params]), params)])
-    state.dp_group = dist.group.WORLD
-    state.data_rank, state.data_world = dist.get_rank(), dist.get_world_size()
-    if state.graphs is not None:
-        state.graphs.clear()
-    return state

@@ -8,27 +8,32 @@ one, else replicate; 1-D leaves replicate), keeps the batch sharded over
 "data", and lets XLA partition the convolutions. Its AdamW moments take
 their parameter's sharding.
 
-The port puts both nets under FSDP2 (`fully_shard`) over the same mesh:
-replicated over "data" and sharded over "model" by the same rule, moved
+The port holds the shards itself (`NetShards`), by the same rule moved
 into torch's layout (`param_spec`: flax's trailing output dimension is
-dim 0 of a torch [out, in, k] convolution weight). The leaves the rule
-replicates are left to the step, which averages their gradients itself
-(`train.step`). The optimizers are rebuilt on the sharded parameters, so
-their moments are DTensors of the same placement (JAX
-`opt_state_shardings`). Every "model" rank of one data replica takes the
-same rows and draws, as the JAX batch is replicated across "model"; their
-identical gradients average to themselves, so the numbers are the
-single-process step's.
+dim 0 of a torch [out, in, k] convolution weight). Each rank keeps its
+"model" slice of every sharded leaf as a view of one flat send buffer a
+net; the optimizers are rebuilt over those shards and the replicated
+leaves, so the moments are shard-shaped (JAX `opt_state_shardings`) and
+AdamW is capturable as on one card. The modules keep their whole
+parameters, at the same addresses for the life of the state, so
+evaluation, checkpoints and serving read them between steps as they
+always have. Every "model" rank of one data replica takes the same rows
+and draws, as the JAX batch is replicated across "model", so each
+computes the same whole gradients; the step (`train.step`) averages them
+over every rank, updates this rank's shards, all-gathers them over
+"model" into one receive buffer a net and copies that into the whole
+parameters in place.
 
 One difference is kept: XLA partitions each convolution over "model",
-while FSDP2 all-gathers a layer's weights and computes it whole on every
-"model" rank. The state's memory and the numbers are JAX's; the split of
-the compute is not (ROADMAP, "Known differences").
+while the port computes each layer whole on every "model" rank, and so
+keeps the whole parameters resident (the moments, twice the parameters,
+stay sharded). The state's numbers are JAX's; the split of the compute
+and of the parameters' memory is not (ROADMAP, "Known differences").
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -117,81 +122,154 @@ def param_shardings(net: torch.nn.Module, mesh, axis_name: str = "model"
     return out
 
 
+class NetShards:
+    """This rank's shards of one net over the mesh axis of `size` ranks
+    (`group`, this rank `rank` in it): the leaves `dims` names ({name: the
+    sharded dimension, or None}), each sliced along its dimension, as
+    views of one flat float32 send buffer, in the net's parameter order;
+    and a receive buffer of `size` times its length for the group's
+    all-gather. Both buffers are made once, here, outside any graph pool,
+    and filled from the net's whole parameters."""
+
+    def __init__(self, net: torch.nn.Module, dims: Dict[str, Optional[int]],
+                 group, rank: int, size: int):
+        self.group, self.rank, self.size = group, rank, size
+        params = list(net.named_parameters())
+        # (position in net.parameters(), parameter, dimension)
+        self.leaves = [(i, p, dims[name]) for i, (name, p) in
+                       enumerate(params) if dims.get(name) is not None]
+        counts = [p.numel() // size for _, p, _ in self.leaves]
+        dev = params[0][1].device
+        self.send = torch.zeros(sum(counts), dtype=torch.float32, device=dev)
+        self.recv = torch.zeros(size * sum(counts), dtype=torch.float32,
+                                device=dev)
+        self.shards = [piece.view(self._shard_shape(p, d)) for piece,
+                       (_, p, d) in zip(self.send.split(counts), self.leaves)]
+        self._of = {id(p): s for (_, p, _), s in zip(self.leaves,
+                                                     self.shards)}
+        # the whole parameters' slices and the receive buffer's pieces
+        self._whole, self._received = [], []
+        for j, chunk in enumerate(self.recv.chunk(size)):
+            for (_, p, d), piece, shard in zip(
+                    self.leaves, chunk.split(counts), self.shards):
+                self._whole.append(p.detach().narrow(
+                    d, j * shard.shape[d], shard.shape[d]))
+                self._received.append(piece.view(shard.shape))
+        self.refresh()
+
+    def _shard_shape(self, p, d) -> List[int]:
+        shape = list(p.shape)
+        shape[d] //= self.size
+        return shape
+
+    def _own(self, t: torch.Tensor, d: int) -> torch.Tensor:
+        """This rank's slice of a whole leaf-shaped tensor along `d`."""
+        k = t.shape[d] // self.size
+        return t.narrow(d, self.rank * k, k)
+
+    def optimizer_params(self, net: torch.nn.Module) -> List[torch.Tensor]:
+        """What the net's AdamW updates: its parameters in order, each
+        sharded one replaced by this rank's shard."""
+        return [self._of.get(id(p), p) for p in net.parameters()]
+
+    def refresh(self) -> None:
+        """Every shard written from its whole parameter, in place (after
+        the whole parameters were loaded)."""
+        with torch.no_grad():
+            torch._foreach_copy_(self.shards, [
+                self._own(p.detach(), d) for _, p, d in self.leaves])
+
+    def take_grads(self) -> None:
+        """Each shard's gradient from its whole parameter's (reduced)
+        gradient: along dim 0 a view of it, made at the first call;
+        along another dim a tensor of the shard's shape, made at the
+        first call and written in place at every later one. A leaf
+        without a gradient leaves its shard without one (AdamW skips
+        it)."""
+        dst, src = [], []
+        for (_, p, d), shard in zip(self.leaves, self.shards):
+            if p.grad is None:
+                continue
+            part = self._own(p.grad, d)
+            if shard.grad is None:
+                shard.grad = part if d == 0 else part.contiguous()
+            elif d:
+                dst.append(shard.grad)
+                src.append(part)
+        if dst:
+            torch._foreach_copy_(dst, src)
+
+    def gather(self) -> None:
+        """The group's all-gather of the send buffers into the receive
+        buffer, rank by rank, on the current stream, as c10d's list of
+        outputs (the receive buffer's chunks): one form for gloo and NCCL
+        (the functional collectives crash under gloo on CUDA tensors)."""
+        dist.all_gather(list(self.recv.chunk(self.size)), self.send,
+                        group=self.group)
+
+    def put_whole(self) -> None:
+        """The whole parameters written from the receive buffer, in
+        place."""
+        with torch.no_grad():
+            torch._foreach_copy_(self._whole, self._received)
+
+    def whole_optimizer_state(self, optim_sd: dict) -> dict:
+        """`optim_sd` (an AdamW state dict of `optimizer_params`, by
+        index) with each shard's moments gathered whole over the group
+        and joined on its dimension: the state dict of the whole net's
+        AdamW. A collective on every rank of the group."""
+        state = dict(optim_sd["state"])
+        held = [(i, d) for i, _, d in self.leaves if i in state]
+        if not held:
+            return optim_sd
+        for key in ("exp_avg", "exp_avg_sq"):
+            flat = torch.cat([state[i][key].reshape(-1).float()
+                              for i, _ in held])
+            parts = [torch.empty_like(flat) for _ in range(self.size)]
+            dist.all_gather(parts, flat, group=self.group)
+            sizes = [state[i][key].numel() for i, _ in held]
+            pieces = [part.split(sizes) for part in parts]
+            for n, (i, d) in enumerate(held):
+                shape = state[i][key].shape
+                whole = torch.cat([p[n].view(shape) for p in pieces], dim=d)
+                state[i] = dict(state[i], **{key: whole})
+        return dict(optim_sd, state=state)
+
+    def shard_optimizer_state(self, optim_sd: dict) -> dict:
+        """The reverse of `whole_optimizer_state`: each sharded leaf's
+        whole moments cut to this rank's slice."""
+        state = dict(optim_sd["state"])
+        for i, _, d in self.leaves:
+            if i in state:
+                state[i] = {k: self._own(v, d).clone()
+                            if k in ("exp_avg", "exp_avg_sq") else v
+                            for k, v in state[i].items()}
+        return dict(optim_sd, state=state)
+
+
 def shard_train_state_tp(state, mesh, axis_name: str = "model"):
-    """Put `state` (`train.step.TrainState`, its nets on this rank's
-    device) under FSDP2 over the (data, model) `mesh`: each parameter
-    sharded over `axis_name` by `param_shardings`, or replicated; both
-    AdamW optimizers rebuilt on the sharded parameters (fresh moments,
-    which the first step makes DTensors of their parameter's placement).
-    The state takes the mesh's data rank and replicas. Returns `state`."""
-    from torch.distributed.fsdp import fully_shard
-    from torch.distributed.tensor import Shard
+    """Shard `state` (`train.step.TrainState`, its nets on this rank's
+    device) over the (data, model) `mesh`: rank 0's weights broadcast to
+    every rank, then each net's `NetShards` over `axis_name` by
+    `param_shardings`, and both AdamW optimizers rebuilt over the shards
+    and the replicated leaves (fresh moments, shard-shaped from the first
+    step). The state takes the mesh's data rank and replicas; its step
+    graphs are dropped. Returns `state`."""
+    from mb_istft_vits_torch.parallel.mesh import broadcast_weights
+    from mb_istft_vits_torch.train.step import fresh_optimizers
 
-    from mb_istft_vits_torch.train.step import make_optimizer
-
-    for net in (state.net_g, state.net_d):
-        dims = param_shardings(net, mesh, axis_name)
-        params = dict(net.named_parameters())
-        placement = {params[k]: Shard(d) for k, d in dims.items()
-                     if d is not None}
-        fully_shard(net, mesh=mesh, shard_placement_fn=placement.get,
-                    ignored_params={params[k] for k, d in dims.items()
-                                    if d is None})
-    state.optim_g = make_optimizer(state.net_g.parameters(), state.cfg.train)
-    state.optim_d = make_optimizer(state.net_d.parameters(), state.cfg.train)
-    for optim in (state.optim_g, state.optim_d):
-        for group in optim.param_groups:
-            # sharded and replicated parameters do not mix in one foreach op
-            group["foreach"] = False
+    broadcast_weights(state)
+    group = mesh.get_group(axis_name)
+    rank, size = mesh.get_local_rank(axis_name), mesh[axis_name].size()
+    state.shards = {name: NetShards(net, param_shardings(net, size,
+                                                         axis_name),
+                                    group, rank, size)
+                    for name, net in (("g", state.net_g),
+                                      ("d", state.net_d))}
+    fresh_optimizers(state, state.cfg.train)
     state.tp_mesh = mesh
     state.data_rank = mesh.get_local_rank("data")
     state.data_world = mesh["data"].size()
+    if state.graphs is not None:
+        state.graphs.clear()
     return state
-
-
-def full_tensor(t: torch.Tensor) -> torch.Tensor:
-    """A parameter, gradient or moment of `shard_train_state_tp` whole: a
-    DTensor's shards all-gathered over its mesh's "model" ranks and joined
-    on the sharded dimension (a plain tensor as it is). A collective on
-    every "model" rank. It takes c10d's all-gather, as FSDP2 does:
-    `DTensor.full_tensor()` takes the functional collectives, which
-    crash under gloo on CUDA tensors (two ranks sharing a card)."""
-    if not hasattr(t, "to_local"):
-        return t
-    local = t.to_local().contiguous()
-    dims = [p.dim for p in t.placements if p.is_shard()]
-    if not dims:
-        return local
-    group = t.device_mesh.get_group("model")
-    parts = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, local, group=group)
-    return torch.cat(parts, dim=dims[0])
-
-
-def global_norm(grads) -> torch.Tensor:
-    """The L2 norm of all of `grads`, DTensor shards included: each
-    shard's sum of squares, summed over the "model" ranks (the data
-    replicas hold the same gradients)."""
-    sharded = [g for g in grads if hasattr(g, "to_local")]
-    sq = torch.stack([g.to_local().float().pow(2).sum() for g in sharded]
-                     ).sum()
-    dist.all_reduce(sq, group=sharded[0].device_mesh.get_group("model"))
-    plain = [g.float().pow(2).sum() for g in grads
-             if not hasattr(g, "to_local")]
-    return torch.sqrt(sq + (torch.stack(plain).sum() if plain else 0.0))
-
-
-def full_state_dicts(net: torch.nn.Module, optim: torch.optim.Optimizer
-                     ) -> Tuple[dict, dict]:
-    """The whole (unsharded) state dicts of a sharded `net` and of its
-    optimizer, on the CPU, in the layout of `net.state_dict()` and
-    `optim.state_dict()` (parameters by index), so a reference loader reads
-    them. A collective: every rank calls it."""
-    def whole(t):
-        return full_tensor(t).detach().cpu() if torch.is_tensor(t) else t
-
-    model = {k: whole(v) for k, v in net.state_dict().items()}
-    optim_sd = optim.state_dict()
-    state = {i: {k: whole(v) for k, v in s.items()}
-             for i, s in optim_sd["state"].items()}
-    return model, {"state": state, "param_groups": optim_sd["param_groups"]}

@@ -40,20 +40,18 @@ def save(model_dir: str, state: TrainState) -> None:
     """Write G_{step}.pth and D_{step}.pth (D first, so a G file means
     the pair is complete; each through a temporary name). The plain
     modules' state dicts: a data-parallel run's rank 0 calls this, and the
-    names carry no DDP prefix. A state sharded by FSDP2
-    (`parallel.tp`) is gathered whole, a collective every rank enters;
-    rank 0 writes it."""
+    names carry no DDP prefix. A sharded state (`parallel.tp`) holds its
+    weights whole; its AdamW moments are gathered whole over "model", a
+    collective every rank enters, and rank 0 writes the pair."""
     # the lr of the last step taken
     lr = make_lr_schedule(state.cfg)(
         max(state.step - 1 - state.lr_offset, 0))
     for prefix, net, optim in (("D", state.net_d, state.optim_d),
                                ("G", state.net_g, state.optim_g)):
-        if state.tp_mesh is None:
-            model, optim_sd = net.state_dict(), optim.state_dict()
-        else:
-            from mb_istft_vits_torch.parallel.tp import full_state_dicts
-
-            model, optim_sd = full_state_dicts(net, optim)
+        model, optim_sd = net.state_dict(), optim.state_dict()
+        shards = state.shards.get(prefix.lower())
+        if shards is not None:
+            optim_sd = shards.whole_optimizer_state(optim_sd)
             if torch.distributed.get_rank() != 0:
                 continue
         os.makedirs(model_dir, exist_ok=True)
@@ -177,9 +175,11 @@ def resume(model_dir: str, state: TrainState,
     schedule starts again from the initial lr while the step keeps the
     data order. Returns the step, or None when there is no pair.
 
-    The weights are copied into the parameters in place, so the state's
+    The weights are copied into the parameters in place (a sharded
+    state's shards then refreshed from them, in place), so the state's
     step graphs (`train.graphs`) stay valid when only they load; loading
-    the optimizers replaces their moments, and drops the graphs."""
+    the optimizers replaces their moments (a sharded state's cut to its
+    shards), and drops the graphs."""
     step = latest_step(model_dir)
     if step is None:
         return None
@@ -188,8 +188,12 @@ def resume(model_dir: str, state: TrainState,
         ckpt = torch.load(_path(model_dir, prefix, step),
                           map_location=state.device, weights_only=True)
         net.load_state_dict(ckpt["model"])
+        shards = state.shards.get(prefix.lower())
+        if shards is not None:
+            shards.refresh()
         if not weights_only:
-            load_optimizer(optim, ckpt["optimizer"])
+            load_optimizer(optim, ckpt["optimizer"] if shards is None else
+                           shards.shard_optimizer_state(ckpt["optimizer"]))
     if not weights_only and state.graphs is not None:
         state.graphs.clear()
     state.step = step

@@ -2,14 +2,15 @@
 port's counterpart of the JAX package's two jitted train programs,
 `d_step` and `g_step` of `train/step.py:make_train_step`, compiled once
 per bucket shape: "2 per bucket", `train.py:262-266`; its data-parallel
-step is the same two programs, with the gradient all-reduces that XLA
-inserts inside them).
+and 2-D (data x model) steps are the same two programs, with the
+collectives that XLA inserts inside them).
 
 `TrainGraphs.step(state, batch, draws)` is one real training step. At a
 new key, the batch's signature (each step input's shape and dtype, or
 None: "x", "x_lengths", "wav" int16 or float, "spec" present or not,
 "spec_lengths", "sid", and the draws) with the model variant, `fp16_run`,
-`mas_force`, the device, the world size and the group's backend, the
+`mas_force`, the device, the world size, the group's backend and the
+ranks the leaves are sharded over (`TrainState.n_model`), the
 first `WARMUP_ITERS` calls run the eager body (`train.step.step_body`) on
 a side stream, each the step it is: a training warm-up changes the
 weights, so it cannot be run and thrown away, and it sets up what a
@@ -23,40 +24,42 @@ from the step's generator; a data-parallel rank draws its own rows) and
 the lr schedule (`write_lr`, filled into the optimizers' lr tensors
 before the step) advance as eagerly.
 
-The step is the three stages of `train.step.step_stages`. A plain
-state's are one graph. A data-parallel state's (a world above 1, or a
-process group of one rank) are a graph each, from one collective to the
-next:
-the all-reduces run eagerly between the graphs, on the caller's stream
-in place on the flat gradient buffers (`train.step.drive`, which the
-warm-ups, the capture and the replays all go through). The capture runs
-the step so: it captures stage 1 and replays it, runs collective 1,
-captures stage 2, and so on. Over NCCL nothing waits on the host; over
-gloo each collective syncs, as eagerly. Dropout draws from torch's
-default CUDA generator, whose offset each graph's replay advances by
-what that graph drew.
+The step is the stages of `train.step.step_stages`. A plain state's
+three are one graph. A data-parallel state's three (a world above 1, or
+a process group of one rank) and a sharded state's five are a graph
+each, from one collective to the next: the collectives
+(`train.step.collectives`: the gradient all-reduces, and a sharded
+state's all-gathers of its shards) run eagerly between the graphs, on
+the caller's stream, in place on the flat buffers (`train.step.drive`,
+which the warm-ups, the capture and the replays all go through). The
+capture runs the step so: it captures stage 1 and replays it, runs
+collective 1, captures stage 2, and so on. Over NCCL nothing waits on
+the host; over gloo each collective syncs, as eagerly. Dropout draws
+from torch's default CUDA generator, whose offset each graph's replay
+advances by what that graph drew.
 
 Nothing that outlives a step lives in a graph's memory pool: the
-gradients and their flat buffers, AdamW's moments, step counts and lr
-are made by the eager warm-up steps, outside any pool, and each graph
-zeroes the gradients in place and writes the same tensors. So all of a
-state's graphs share one pool, the stages of a step replayed in their
-order, one step at a time, on the caller's stream. A capture in which a
-parameter's gradient or a flat buffer first appears raises. The metrics
+gradients and their flat buffers, the shards' gradients, AdamW's
+moments, step counts and lr are made by the eager warm-up steps, and the
+shards' send and receive buffers by `parallel.tp.shard_train_state_tp`,
+outside any pool; each graph zeroes the gradients in place and writes
+the same tensors. So all of a state's graphs share one pool, the stages
+of a step replayed in their order, one step at a time, on the caller's
+stream. A capture in which a gradient first appears, or a parameter, a
+shard or a flat buffer is first made or moved, raises. The metrics
 leave the last graph as one stacked float32 buffer, copied out at each
 replay (a later replay overwrites it) and split into 0-d tensors of
 their eager dtypes.
 
-`train.step.train_step` routes every state here but one under FSDP2
-(`tp_mesh`), whose all-gathers run inside each layer, so that no stretch
-of its step is free of a collective; it steps eagerly. On a device
-without graphs (the CPU) the body runs directly and its key is kept all
-the same (`keys()`). A capture or replay that fails raises; nothing
-falls back to eager.
+`train.step.train_step` routes every state here. On a device without
+graphs (the CPU) the body runs directly and its key is kept all the same
+(`keys()`). A capture or replay that fails raises; nothing falls back to
+eager.
 
 Whatever replaces or rewrites the tensors a graph reads must drop the
 state's graphs (`clear`): `train.checkpoint.resume` does when it loads
-optimizer state; loading weights alone and `snap_to_epoch` write in place.
+optimizer state; loading weights alone (a sharded state's shards
+refreshed from them) and `snap_to_epoch` write in place.
 """
 
 from __future__ import annotations
@@ -72,9 +75,9 @@ from mb_istft_vits_torch.infer.graphs import (_CAPTURE_LOCK, WARMUP_ITERS,
                                               pool_bytes, signature)
 from mb_istft_vits_torch.ops import mas
 from mb_istft_vits_torch.train.step import (StepDraws, TrainState, drive,
-                                            draw_step, step_body,
-                                            step_stages, train_step_eager,
-                                            write_lr)
+                                            draw_step, optimizer_params,
+                                            step_body, step_stages,
+                                            train_step_eager, write_lr)
 
 # the batch entries the step reads, in the graph's input order
 STEP_KEYS = ("x", "x_lengths", "wav", "spec", "spec_lengths", "sid")
@@ -82,8 +85,22 @@ STEP_KEYS = ("x", "x_lengths", "wav", "spec", "spec_lengths", "sid")
 
 def routed(state: TrainState) -> bool:
     """Whether `train_step` steps `state` through `TrainGraphs`: every
-    state but one under FSDP2."""
-    return state.tp_mesh is None
+    state does."""
+    return True
+
+
+def _held(state: TrainState) -> Tuple[List[torch.Tensor], List[int]]:
+    """What a capture must find made and keeps in place: every parameter
+    and every tensor the optimizers update (with the gradients they have),
+    and the addresses of those and of every flat buffer."""
+    params = [p for net in (state.net_g, state.net_d)
+              for p in net.parameters()]
+    params += [p for optim in (state.optim_g, state.optim_d)
+               for p in optimizer_params(optim)]
+    buffers = [state.grad_buffers[k] for k in sorted(state.grad_buffers)]
+    buffers += [b for k in sorted(state.shards)
+                for b in (state.shards[k].send, state.shards[k].recv)]
+    return params, [t.data_ptr() for t in params + buffers]
 
 
 def _args(batch: Dict[str, torch.Tensor], draws: Optional[StepDraws]
@@ -111,7 +128,7 @@ class _TrainGraph:
         self.graphs, self.inputs, self.metrics = list(graphs), inputs, metrics
         self.names, self.dtypes, self.launches = names, dtypes, launches
 
-    def replay(self, state: Optional[TrainState],
+    def replay(self, state: TrainState,
                args: Sequence[Optional[torch.Tensor]]
                ) -> Dict[str, torch.Tensor]:
         """The step on `args`: copied into the input buffers, then the
@@ -173,7 +190,7 @@ class TrainGraphs:
                 m.n_speakers, state.cfg.train.fp16_run, state.mas_force,
                 state.device, state.world,
                 None if group is None else dist.get_backend(group),
-                signature(args))
+                state.n_model, signature(args))
 
     def pool_bytes(self) -> Optional[int]:
         """Bytes the caching allocator holds in the graphs' pool (None
@@ -241,10 +258,8 @@ class TrainGraphs:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         inputs = [None if a is None else a.detach().clone() for a in args]
-        params = [p for net in (state.net_g, state.net_d)
-                  for p in net.parameters()]
+        params, addresses = _held(state)
         without_grad = [p.grad is None for p in params]
-        buffers = dict(state.grad_buffers)
         stages = step_stages(state, *_unpack(inputs))
         # a graph from one collective to the next: with none, one graph
         parts = ([stages] if state.group is None
@@ -287,11 +302,12 @@ class TrainGraphs:
         current.wait_stream(side)
         appeared = sum(1 for p, none in zip(params, without_grad)
                        if none and p.grad is not None)
-        if appeared or state.grad_buffers.keys() != buffers.keys():
+        if appeared or _held(state)[1] != addresses:
             raise RuntimeError(
-                f"train graph {key[:-1]}: {appeared} gradient(s) or a flat "
-                "gradient buffer first allocated inside the capture, in the "
-                "graphs' pool; the eager warm-up steps must make them all")
+                f"train graph {key[:-1]}: {appeared} gradient(s), or a "
+                "parameter, shard or flat buffer, first allocated or moved "
+                "inside the capture, in the graphs' pool; the eager warm-up "
+                "steps and the sharding must make them all")
         (names, dtypes, metrics), = flat
         self.captures += 1
         self.capture_seconds[key] = time.perf_counter() - t0

@@ -17,11 +17,12 @@ One step, in the reference's own order:
      count before the increment
 
 Data parallel (`parallel.mesh.shard_train_state_dp`, one process per
-card; `parallel.tp.shard_train_state_tp`, FSDP2 over a data x model
-mesh): each process steps on its own rows of the global batch, as a JAX
-host feeds its rows to one SPMD program, and the step's numbers are the
-global batch's, as XLA computes them. Such a step runs in three stages
-(`step_stages`) with one all-reduce between each two (`drive`):
+card; `parallel.tp.shard_train_state_tp`, over a data x model mesh):
+each process steps on its own rows of the global batch, as a JAX host
+feeds its rows to one SPMD program, and the step's numbers are the
+global batch's, as XLA computes them. Such a step runs in stages
+(`step_stages`) with one collective between each two (`drive`,
+`collectives`):
   1. forward, D's loss and backward; buffer 1 is [D's gradients | D's
      loss | sum(x_mask), sum(z_mask)]
   2. D's AdamW, G's losses at the global mask sums, G's backward;
@@ -34,11 +35,23 @@ sums it in place, as DDP's reducer does, so the gradients are the ranks'
 average and the losses the global batch's. Two G losses are ratios over
 the whole batch (the KL over sum(z_mask), the duration loss over
 sum(x_mask)): each rank's term is scaled by world * local sum / global
-sum, so the average of the ranks' gradients is the global loss's.
-Under FSDP2 the buffers hold only the leaves it leaves replicated; it
-reduces the sharded ones itself. A plain state (no group) runs the same
-three stages with no buffer and no collective; a group of one rank runs
-them with both.
+sum, so the average of the ranks' gradients is the global loss's. A
+plain state (no group) runs the same three stages with no buffer and no
+collective; a group of one rank runs them with both.
+
+A state sharded over a data x model mesh (`TrainState.shards`) averages
+its whole gradients over every rank the same way (each "model" rank of a
+data replica computes the same ones), then updates only its shards and
+all-gathers them over "model" (`parallel.tp.NetShards`). Its step is
+five stages and four collectives:
+  1. forward, D's loss and backward; all-reduce buffer 1
+  2a. D's norm over its whole gradients, AdamW on D's shards (views of
+     D's send buffer); all-gather D's shards over "model"
+  2b. D's whole parameters from the receive buffer, in place; G's
+     losses against the updated D, G's backward; all-reduce buffer 2
+  3. G's norm, clip and AdamW on G's shards, the metrics; all-gather G's
+     shards
+  4. G's whole parameters from the receive buffer, in place
 
 The JAX package splits the step into two programs and re-runs the fake's
 subgraph in the first (`Synthesizer.fake_slice`) only to keep each TPU
@@ -49,10 +62,10 @@ float32; there is no loss scaling.
 Where JAX compiles its two programs once per bucket shape, `train_step`
 runs the step as CUDA graphs per batch signature (`train.graphs`) on a
 card: one graph of the plain step, or one graph a stage of a
-data-parallel one, with the collectives run eagerly between their
-replays; `train_step_eager` is the same step kernel by kernel. So that a
-stage can be captured, it draws nothing and writes no Python value into
-the device: the draws come in as tensors (`draw_step` makes them from the
+data-parallel or sharded one, with the collectives run eagerly between
+their replays; `train_step_eager` is the same step kernel by kernel. So
+that a stage can be captured, it draws nothing and writes no Python
+value into the device: the draws come in as tensors (`draw_step` makes them from the
 step's generator, in the eager order), the lr is a 0-dim tensor of each
 capturable optimizer that `write_lr` fills before the step, and the
 gradients are zeroed in place, never set to None.
@@ -108,10 +121,11 @@ class TrainState:
     Data parallel: `dp_group` is the process group whose ranks average
     the gradients (`parallel.mesh.shard_train_state_dp`; None: no data
     parallelism), `data_rank` / `data_world` this process's rows of the
-    global batch, and `tp_mesh` the data x model mesh when FSDP2 shards
-    the modules (`parallel.tp`). `grad_buffers` holds the flat gradient
-    buffer of each network ("d", "g") that the step's collectives reduce
-    (`grad_buffer`).
+    global batch; `tp_mesh` the data x model mesh of a sharded state and
+    `shards` its `parallel.tp.NetShards` of each network ("d", "g"),
+    whose shards its optimizers update (`parallel.tp`). `grad_buffers`
+    holds the flat gradient buffer of each network that the step's
+    collectives reduce (`grad_buffer`).
 
     `mas_force` routes the alignment (`ops.mas.maximum_path(force=)`);
     `graphs` holds the step's CUDA graphs (`train.graphs.TrainGraphs`,
@@ -132,6 +146,8 @@ class TrainState:
     mas_force: str = "auto"
     grad_buffers: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
+    shards: Dict[str, Any] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
     graphs: Optional[Any] = dataclasses.field(default=None, repr=False,
                                               compare=False)
 
@@ -141,9 +157,9 @@ class TrainState:
 
     @property
     def group(self):
-        """The process group the step's collectives run over: the
-        data-parallel group, every rank under FSDP2, None for a plain
-        state (no collective)."""
+        """The process group the step's gradient all-reduces run over: the
+        data-parallel group, every rank of a sharded state's mesh, None
+        for a plain state (no collective)."""
         if self.tp_mesh is not None:
             return dist.group.WORLD
         return self.dp_group
@@ -153,6 +169,11 @@ class TrainState:
         """Ranks whose gradients are averaged: the group's, else 1."""
         group = self.group
         return 1 if group is None else dist.get_world_size(group)
+
+    @property
+    def n_model(self) -> int:
+        """Ranks a sharded state's leaves are split over, else 1."""
+        return next(iter(self.shards.values())).size if self.shards else 1
 
     def learning_rate(self) -> float:
         """The lr of the next step."""
@@ -179,19 +200,29 @@ def make_optimizer(params, train_cfg: TrainConfig) -> torch.optim.AdamW:
     """AdamW with the config's betas and eps and weight decay 0.01. Its
     update, -lr * (m_hat / (sqrt(v_hat) + eps) + 0.01 * p), is the JAX
     package's `leaf_adamw`; the trainer sets its lr from the schedule
-    before every step. On CUDA parameters (not FSDP2's DTensors) it is
-    capturable, its lr a 0-dim float32 tensor on their device and its step
-    counts device tensors, so that a CUDA graph can hold the update; the
-    CPU has no capturable AdamW."""
+    before every step. On CUDA parameters (or a sharded state's shards) it
+    is capturable, its lr a 0-dim float32 tensor on their device and its
+    step counts device tensors, so that a CUDA graph can hold the update;
+    the CPU has no capturable AdamW."""
     params = list(params)
-    capturable = (bool(params) and params[0].is_cuda
-                  and not any(hasattr(p, "to_local") for p in params))
+    capturable = bool(params) and params[0].is_cuda
     lr = (torch.tensor(train_cfg.learning_rate, dtype=torch.float32,
                        device=params[0].device) if capturable
           else train_cfg.learning_rate)
     return torch.optim.AdamW(params, lr=lr, betas=tuple(train_cfg.betas),
                              eps=train_cfg.eps, weight_decay=WEIGHT_DECAY,
                              capturable=capturable)
+
+
+def fresh_optimizers(state: TrainState, train_cfg: TrainConfig) -> None:
+    """Both of `state`'s optimizers made anew (`make_optimizer`) over what
+    each net's step updates: its parameters, or a sharded state's shards
+    in place of the leaves it shards (`parallel.tp.NetShards`)."""
+    for name, net in (("g", state.net_g), ("d", state.net_d)):
+        shards = state.shards.get(name)
+        params = (net.parameters() if shards is None
+                  else shards.optimizer_params(net))
+        setattr(state, f"optim_{name}", make_optimizer(params, train_cfg))
 
 
 def create_train_state(cfg: Config, device: torch.device,
@@ -239,18 +270,20 @@ def _autocast(state: TrainState):
 
 def _global_norm(params) -> torch.Tensor:
     grads = [p.grad for p in params if p.grad is not None]
-    if any(hasattr(g, "to_local") for g in grads):  # FSDP2's DTensors
-        from mb_istft_vits_torch.parallel.tp import global_norm
-
-        return global_norm(grads)
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
+def optimizer_params(optim: torch.optim.Optimizer) -> List[torch.Tensor]:
+    """What `optim` updates, in order: a net's parameters, or a sharded
+    state's shards in place of the leaves it shards."""
+    return [p for group in optim.param_groups for p in group["params"]]
 
 
 def grad_buffer(state: TrainState, name: str, params, tail: int
                 ) -> torch.Tensor:
     """The flat float32 buffer of network `name` ("d" or "g") that a
     collective reduces: the gradients of `params` that the step reduces
-    (each one it has made; under FSDP2 the replicated ones), then `tail`
+    (each one it has made), then `tail`
     more values. Made at the first call, outside any graph pool, from the
     gradients the step has just made, each of which becomes a view of it:
     autograd then accumulates into the view in place, and
@@ -259,8 +292,7 @@ def grad_buffer(state: TrainState, name: str, params, tail: int
     it does in the plain step. Later calls check that each reduced
     gradient is still a view of the buffer: one that appeared after it
     was made, or was replaced, raises."""
-    grads = [p for p in params
-             if p.grad is not None and not hasattr(p, "to_local")]
+    grads = [p for p in params if p.grad is not None]
     buf = state.grad_buffers.get(name)
     if buf is None:
         sizes = [p.numel() for p in grads]
@@ -296,13 +328,27 @@ def _fill(state: TrainState, name: str, params, scaled: torch.Tensor,
         buf[k:].copy_(summed)
 
 
-REDUCED = ("d", "g")  # the buffer collective i of a data-parallel step sums
+REDUCED = ("d", "g")  # the buffer all-reduce i of a step sums
 
 
 def all_reduce_buffer(state: TrainState, i: int) -> None:
-    """Collective i of a data-parallel step: buffer REDUCED[i] summed over
+    """All-reduce i of a data-parallel step: buffer REDUCED[i] summed over
     the state's group, in place, on the current stream."""
     dist.all_reduce(state.grad_buffers[REDUCED[i]], group=state.group)
+
+
+def collectives(state: TrainState) -> List[Callable[[], None]]:
+    """The collectives between the stages of `state`'s step, in order: none
+    for a plain state; the two buffer all-reduces for a data-parallel one;
+    for a sharded one each all-reduce followed by that net's all-gather
+    of its shards over "model" (module docstring)."""
+    if state.group is None:
+        return []
+    reduce = [lambda i=i: all_reduce_buffer(state, i) for i in range(2)]
+    if not state.shards:
+        return reduce
+    return [reduce[0], state.shards["d"].gather, reduce[1],
+            state.shards["g"].gather]
 
 
 def set_lr(optim: torch.optim.AdamW, lr: float) -> None:
@@ -328,10 +374,7 @@ def optimizer_step(optim: torch.optim.AdamW, params, lr: Optional[float],
     reference commons.py:146-161), then one AdamW step at `lr` (None: at
     the lr the optimizer holds, which `write_lr` wrote)."""
     if clip_value is not None:
-        # FSDP2's DTensors and plain tensors do not mix in one foreach op
-        mixed = any(hasattr(p, "to_local") for p in params)
-        torch.nn.utils.clip_grad_value_(params, clip_value,
-                                        foreach=False if mixed else None)
+        torch.nn.utils.clip_grad_value_(params, clip_value)
     if lr is not None:
         set_lr(optim, lr)
     optim.step()
@@ -408,17 +451,19 @@ def d_backward(state: TrainState, y: torch.Tensor, y_hat: torch.Tensor
     gradients zeroed in place, then its backward; returns the loss,
     detached."""
     loss_disc = d_loss(state, y, y_hat)
-    state.optim_d.zero_grad(set_to_none=False)
+    state.net_d.zero_grad(set_to_none=False)
     loss_disc.backward()
     return loss_disc.detach()
 
 
 def d_update(state: TrainState) -> torch.Tensor:
     """D's gradient norm, then its AdamW step at the lr the optimizer holds
-    (`write_lr`), no clip; returns the norm."""
-    params = list(state.net_d.parameters())
-    grad_norm_d = _global_norm(params)
-    optimizer_step(state.optim_d, params, None)
+    (`write_lr`), no clip (a sharded state's on its shards, their
+    gradients taken from the whole ones first); returns the norm."""
+    grad_norm_d = _global_norm(state.net_d.parameters())
+    if state.shards:
+        state.shards["d"].take_grads()
+    optimizer_step(state.optim_d, optimizer_params(state.optim_d), None)
     return grad_norm_d
 
 
@@ -451,18 +496,13 @@ def g_losses(state: TrainState, batch, out, y: torch.Tensor
                                 d.hop_length, d.win_length, d.mel_fmin,
                                 d.mel_fmax)
     # gradients reach the generator through D, whose own gradients are
-    # not needed. FSDP2's sharded parameters keep
-    # requires_grad: there the G backward fills D's gradients and the next
-    # D step's zero_grad zeroes them.
-    toggle = state.tp_mesh is None
-    if toggle:
-        state.net_d.requires_grad_(False)
+    # not needed
+    state.net_d.requires_grad_(False)
     try:
         with _autocast(state):
             _, y_d_g, fmap_r, fmap_g = state.net_d(y, y_hat.transpose(1, 2))
     finally:
-        if toggle:
-            state.net_d.requires_grad_(True)
+        state.net_d.requires_grad_(True)
     return {
         "loss/g/gen": generator_loss(y_d_g)[0],
         "loss/g/fm": feature_loss(fmap_r, fmap_g),
@@ -490,7 +530,7 @@ def g_backward(state: TrainState, batch, out, y: torch.Tensor,
         losses["loss/g/dur"] = losses["loss/g/dur"] * scale[0]
         losses["loss/g/kl"] = losses["loss/g/kl"] * scale[1]
     total = sum(losses.values())
-    state.optim_g.zero_grad(set_to_none=False)
+    state.net_g.zero_grad(set_to_none=False)
     total.backward()
     metrics = {"loss/g/total": total.detach()}
     metrics.update({k: v.detach() for k, v in losses.items()})
@@ -499,10 +539,12 @@ def g_backward(state: TrainState, batch, out, y: torch.Tensor,
 
 def g_update(state: TrainState) -> torch.Tensor:
     """G's gradient norm, value clip, then AdamW at the lr the optimizer
-    holds (`write_lr`); returns the norm."""
-    params = list(state.net_g.parameters())
-    grad_norm_g = _global_norm(params)
-    optimizer_step(state.optim_g, params, None,
+    holds (`write_lr`; a sharded state's on its shards, as `d_update`);
+    returns the norm."""
+    grad_norm_g = _global_norm(state.net_g.parameters())
+    if state.shards:
+        state.shards["g"].take_grads()
+    optimizer_step(state.optim_g, optimizer_params(state.optim_g), None,
                    state.cfg.train.grad_clip_value)
     return grad_norm_g
 
@@ -550,15 +592,17 @@ Stage = Callable[[], Optional[Dict[str, torch.Tensor]]]
 
 def step_stages(state: TrainState, batch: Dict[str, torch.Tensor],
                 draws: Optional[StepDraws] = None) -> List[Stage]:
-    """The step as three stages over one context, for `drive`: (1) the
-    forward and D's backward, (2) D's update and G's backward, (3) G's
-    update and the metrics. A data-parallel state's stages 1 and 2 end
-    at the fill of the buffer their collective reduces (module
-    docstring); a plain state's do not, and its stages are `d_step` then
-    `g_step`, op for op. The last stage returns the metrics as 0-d
-    tensors, the others None."""
+    """The step as stages over one context, for `drive`: (1) the forward
+    and D's backward, (2) D's update and G's backward, (3) G's update and
+    the metrics. A data-parallel state's stages 1 and 2 end at the fill of
+    the buffer their collective reduces (module docstring); a plain
+    state's do not, and its stages are `d_step` then `g_step`, op for op.
+    A sharded state's stage 2 is two, split at D's all-gather, and a
+    fifth puts G's gathered shards into its whole parameters. The last
+    stage returns the metrics as 0-d tensors, the others None."""
     ctx: Dict[str, Any] = {}
     reduced = state.group is not None
+    shards = state.shards
 
     def forward_d():
         ctx["batch"], out, y = _forward(state, batch, draws)
@@ -571,8 +615,14 @@ def step_stages(state: TrainState, batch: Dict[str, torch.Tensor],
             _fill(state, "d", state.net_d.parameters(),
                   ctx["loss/d/total"].float().reshape(1), ctx["mask_sums"])
 
-    def update_d_backward_g():
+    def update_d():
         ctx["grad_norm_d"] = d_update(state)
+
+    def backward_g():
+        if shards:
+            shards["d"].put_whole()
+        else:
+            update_d()
         scale = (state.world * ctx["mask_sums"]
                  / state.grad_buffers["d"][-2:] if reduced else None)
         ctx["losses"] = g_backward(state, ctx["batch"], ctx["out"], ctx["y"],
@@ -596,21 +646,35 @@ def step_stages(state: TrainState, batch: Dict[str, torch.Tensor],
         metrics.update(losses)
         metrics["grad_norm_g"] = grad_norm_g
         ctx.clear()
-        return metrics
+        if not shards:
+            return metrics
+        ctx["metrics"] = metrics
+        return None
 
-    return [forward_d, update_d_backward_g, update_g]
+    def put_g():
+        shards["g"].put_whole()
+        return ctx.pop("metrics")
+
+    if shards:
+        return [forward_d, update_d, backward_g, update_g, put_g]
+    return [forward_d, backward_g, update_g]
 
 
 def drive(state: TrainState, run: Callable[[int], Any], n: int) -> Any:
-    """Part i of `n` as `run(i)`, in order, and for a data-parallel state
-    collective i (`all_reduce_buffer`) between parts i and i + 1; returns
-    the last part's result. The eager step and the step graphs' warm-ups,
-    captures and replays all run a step so: a part is a stage, or a plain
-    state's three stages in one."""
+    """Part i of `n` as `run(i)`, in order, with the state's collective i
+    (`collectives`) between parts i and i + 1; returns the last part's
+    result. The eager step and the step graphs' warm-ups, captures and
+    replays all run a step so: a part is a stage, or a plain state's
+    three stages in one. A plain state has no collectives and runs its
+    parts back to back; any other state raises unless it has one
+    collective between each two parts."""
+    schedule = collectives(state)
+    if schedule and len(schedule) != n - 1:
+        raise ValueError(f"{n} parts for {len(schedule)} collectives")
     out = None
     for i in range(n):
-        if i and state.group is not None:
-            all_reduce_buffer(state, i - 1)
+        if i and schedule:
+            schedule[i - 1]()
         out = run(i)
     return out
 
@@ -648,14 +712,11 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
 
     On a card, a state steps through its CUDA graphs, one set per batch
     signature (`train.graphs.TrainGraphs`: eager warm-up steps, then a
-    capture, then replays; a data-parallel state a graph a stage, with
-    its collectives between); on the CPU the body runs directly and the
-    signature's key is kept. A state under FSDP2 steps eagerly: its
-    all-gathers run inside each layer."""
-    from mb_istft_vits_torch.train.graphs import TrainGraphs, routed
+    capture, then replays; a data-parallel or sharded state a graph a
+    stage, with its collectives between); on the CPU the body runs
+    directly and the signature's key is kept."""
+    from mb_istft_vits_torch.train.graphs import TrainGraphs
 
-    if not routed(state):
-        return train_step_eager(state, batch, draws)
     if state.graphs is None:
         state.graphs = TrainGraphs()
     return state.graphs.step(state, batch, draws)

@@ -59,7 +59,7 @@ RENAMED = {
         "a jax `NamedSharding`; the step's all-reduce keeps the weights "
         "replicated",
     "parallel.tp.opt_state_shardings":
-        "FSDP2's AdamW moments are DTensors of their parameter's placement",
+        "AdamW runs on `NetShards`' shards, so its moments are shard-shaped",
     "train.checkpoint.save_checkpoint":
         "Orbax; the port writes reference `.pth` pairs: `checkpoint.save`",
     "train.checkpoint.wait_for_pending_checkpoint":

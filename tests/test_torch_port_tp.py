@@ -1,13 +1,13 @@
 """The 2-D (data x model) sharding of the PyTorch port (`parallel/tp.py`)
 on the CPU: four gloo ranks (tests/torch_port_dist_worker.py) run one
-whole D + G step with both nets under FSDP2 over a 2 x 2 mesh, each data
+whole D + G step with both nets sharded over a 2 x 2 mesh, each data
 replica on one row of tests/test_torch_port_train.py's ragged batch,
 against the port's single-process step on both rows (the worker's
 `seeded_state` weights, seeded numpy draws, every dropout off, lr 10 and
 eps 10): loss scalars 1e-4 relative, D leaves 1e-4 max-abs, G leaves
 outside dp.* 2e-4 relative L2 of their update. The sharding rule is
-JAX's `param_spec` in torch's layout, the moments carry their weight's
-placement (JAX tests/test_train.py:238-259), the full state dict
+JAX's `param_spec` in torch's layout, the moments take their weight's
+shard's shape (JAX tests/test_train.py:238-259), the full state dict
 round-trips through a reference `.pth`, and `create_2d_mesh` refuses what
 JAX's refuses, with its words."""
 
@@ -64,7 +64,7 @@ def _config():
 
 @pytest.fixture(scope="module")
 def tp_run(tmp_path_factory):
-    """The single-process step and four FSDP2 ranks (2 x 2) from one set of
+    """The single-process step and four sharded ranks (2 x 2) from one set of
     weights (the worker's `seeded_state`, which each rank builds itself),
     batch and draws. The files go when the module's tests are done."""
     tmp = tmp_path_factory.mktemp("tp")
@@ -117,20 +117,23 @@ def test_tp_step_matches_the_single_process_step(tp_run):
 
 
 def test_tp_shards_weights_and_their_moments(tp_run):
-    """The weights sharded are those param_shardings names (replicated
-    over data, Shard over model), at least 10 of them conv weights on dim
-    0, and each one's AdamW moments carry its placement."""
-    rank = tp_run["ranks"][0]
+    """The weights sharded are those param_shardings names, each rank
+    holding half of the named dimension (the same on every data replica),
+    at least 10 of them conv weights on dim 0, and each one's AdamW
+    moments have its shard's shape."""
     want = {f"{p}.{k}": d for p, net in (("g", Synthesizer(
         tp_run["cfg"].model)), ("d", MultiPeriodDiscriminator()))
         for k, d in param_shardings(net, 2).items() if d is not None}
-    assert sorted(rank["sharded"]) == sorted(want)
-    for k, placements in rank["sharded"].items():
-        assert placements == [["R"], ["S", want[k]]], k
+    for rank in tp_run["ranks"]:
+        assert sorted(rank["sharded"]) == sorted(want)
+        for k, leaf in rank["sharded"].items():
+            shard = list(leaf["whole"])
+            shard[want[k]] //= 2
+            assert leaf["dim"] == want[k] and leaf["shard"] == shard, k
+            assert leaf["moments"] == [shard, shard], k
     conv_dim0 = [k for k, d in want.items()
                  if d == 0 and k.endswith(("weight", "weight_v"))]
     assert len(conv_dim0) >= 10
-    assert rank["moments"] == rank["sharded"]
 
 
 def test_tp_full_state_dict_round_trips_through_pth(tp_run):

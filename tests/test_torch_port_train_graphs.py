@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import socket
+import types
 
 import jax
 import jax.numpy as jnp
@@ -429,8 +430,9 @@ def test_replays_add_the_launches_their_capture_counted():
     g = tgraphs._TrainGraph([_StubGraph()], [buf, None], metrics,
                             ("loss/d/total", "loss/g/gen"),
                             (torch.float32, torch.bfloat16), launches)
+    plain = types.SimpleNamespace(group=None)  # a plain state: no collectives
     for i in range(3):
-        out = g.replay(None, [torch.full((3,), float(i)), None])
+        out = g.replay(plain, [torch.full((3,), float(i)), None])
         assert torch.equal(buf, torch.full((3,), float(i)))
     assert g.graphs[0].replays == 3
     assert mas.launch_counts == {"mas_fused": 8, "mas_fwd": 3, "mas_bwd": 3,
@@ -440,6 +442,26 @@ def test_replays_add_the_launches_their_capture_counted():
     out["loss/d/total"] += 1  # a copy: the graph's buffer is not written
     assert float(metrics[0]) == 1.5
     mas.reset_launch_counts()
+
+
+def test_drive_needs_a_collective_between_each_two_parts():
+    """A plain state runs any number of parts back to back; a data-parallel
+    or sharded state driven with a part count that does not match its
+    collectives raises before any part runs (its reductions would be
+    dropped)."""
+    from mb_istft_vits_torch.train.step import drive
+    ran = []
+    plain = types.SimpleNamespace(group=None)
+    assert drive(plain, lambda i: ran.append(i) or i, 3) == 2
+    assert ran == [0, 1, 2]
+    dp = types.SimpleNamespace(group=object(), shards={})
+    sharded = types.SimpleNamespace(group=object(), shards={
+        "d": types.SimpleNamespace(gather=None),
+        "g": types.SimpleNamespace(gather=None)})
+    for state, n in ((dp, 1), (dp, 5), (sharded, 1), (sharded, 3)):
+        with pytest.raises(ValueError, match="collectives"):
+            drive(state, ran.append, n)
+    assert ran == [0, 1, 2]
 
 
 def test_warmup_steps_before_a_capture():

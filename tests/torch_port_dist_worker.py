@@ -8,7 +8,7 @@ launcher and rank helpers.
 SPEC is a `torch.save`d dict: "address", "world", "device", "backend",
 "timeout" (seconds), "cfg" (a `Config`), "seed" (the weights:
 `seeded_state`), "batch" (the global batch, CPU tensors), "draws" (its
-global `StepDraws`, or None), "n_model" (1: data-parallel; more: FSDP2
+global `StepDraws`, or None), "n_model" (1: data-parallel; more: sharded
 over a (world / n_model) x n_model mesh), "dp_dropout" (the duration
 predictor's dropout), "compare" (a list of cuDNN settings, {"enabled",
 "deterministic"}, one compared step each; default one step as it is),
@@ -19,7 +19,7 @@ timed in each of the graphs and eager, `timed_routes`) and
 default algorithms on the graphs the timed steps captured, under others
 on a capture of its own); "checks" (the
 data-parallel route's checks, `route_checks`, with "bench":
-`bench_train`'s argv or None).
+`bench_train`'s argv or None; for a sharded state `tp_checks`).
 
 The rank builds the weights itself, runs one compared step for each
 setting, each from those weights with fresh optimizers of "cfg" and on
@@ -28,10 +28,10 @@ optimizers of "restart", on its rows of the batch, and writes RANK.pt to
 "out": per step ("compared", "steps") its metrics, a digest of every
 weight, its MAS launches, its route (eager, capture or replay) and its
 synced host ms; rank 0 also the nets' state dicts after each compared
-step ("g", "d"; under FSDP2 the first is written through
-`checkpoint.save`, as G_1.pth / D_1.pth); under FSDP2 the names of the
-sharded weights and of the moments that carry their weight's placement
-(`placements`); on a card, the milliseconds of an all-reduce of every
+step ("g", "d"; for a sharded state the first is written through
+`checkpoint.save`, as G_1.pth / D_1.pth); for a sharded state the
+sharded weights with the shapes of their shards and moments
+(`shard_report`); on a card, the milliseconds of an all-reduce of every
 weight's bytes (a buffer of that size on its own, outside the steps);
 and what "routes", "graph_compare" and "checks" found.
 """
@@ -61,6 +61,7 @@ from mb_istft_vits_torch.infer.graphs import WARMUP_ITERS  # noqa: E402
 from mb_istft_vits_torch.ops import mas  # noqa: E402
 from mb_istft_vits_torch.parallel import dryrun  # noqa: E402
 from mb_istft_vits_torch.train import checkpoint  # noqa: E402
+from mb_istft_vits_torch.train import graphs as tgraphs  # noqa: E402
 from mb_istft_vits_torch.train import step as tstep  # noqa: E402
 from mb_istft_vits_torch.utils import timing  # noqa: E402
 
@@ -83,10 +84,41 @@ def seeded_state(cfg, device, seed: int, dp_dropout=None):
     return state
 
 
-def placements(p) -> list:
-    """A DTensor's placements as ["R"] / ["S", dim] lists."""
-    return [["S", pl.dim] if pl.is_shard() else ["R"]
-            for pl in p.placements]
+def shard_report(state) -> dict:
+    """Each sharded weight ("g.<name>", "d.<name>"): its sharded
+    dimension, its whole shape, its shard's and its AdamW moments'."""
+    out = {}
+    for prefix, net, optim in (("g", state.net_g, state.optim_g),
+                               ("d", state.net_d, state.optim_d)):
+        shards = state.shards[prefix]
+        names = [name for name, _ in net.named_parameters()]
+        for (i, p, d), shard in zip(shards.leaves, shards.shards):
+            st = optim.state.get(shard, {})
+            out[f"{prefix}.{names[i]}"] = {
+                "dim": d, "whole": list(p.shape), "shard": list(shard.shape),
+                "moments": [list(st[k].shape) for k in ("exp_avg",
+                                                        "exp_avg_sq")
+                            if k in st]}
+    return out
+
+
+COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor")
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """Counts the calls of each of COLLECTIVES ({name: calls}) while it is
+    open."""
+    calls = collections.Counter()
+    with contextlib.ExitStack() as stack:
+        for name in COLLECTIVES:
+            def counting(*args, _real=getattr(dist, name), _name=name,
+                         **kwargs):
+                calls[_name] += 1
+                return _real(*args, **kwargs)
+
+            stack.enter_context(mock.patch.object(dist, name, counting))
+        yield calls
 
 
 def _sync(device):
@@ -111,16 +143,17 @@ def allreduce_ms(nbytes: int, device, reps: int = 5) -> float:
 
 
 def reset(state, init, cfg) -> None:
-    """Back to the weights `init` ((G, D) state dicts), with fresh
-    optimizers of `cfg`, at step 0; the step graphs read the old
-    optimizers, so they go (the gradients stay views of their flat
-    buffers)."""
+    """Back to the weights `init` ((G, D) state dicts; a sharded state's
+    shards refreshed from them), with fresh optimizers of `cfg`, at step
+    0; the step graphs read the old optimizers, so they go (the gradients
+    stay views of their flat buffers)."""
     with torch.no_grad():
         state.net_g.load_state_dict(init[0])
         state.net_d.load_state_dict(init[1])
+    for shards in state.shards.values():
+        shards.refresh()
     state.cfg, state.step = cfg, 0
-    state.optim_g = tstep.make_optimizer(state.net_g.parameters(), cfg.train)
-    state.optim_d = tstep.make_optimizer(state.net_d.parameters(), cfg.train)
+    tstep.fresh_optimizers(state, cfg.train)
     if state.graphs is not None:
         state.graphs.clear()
 
@@ -227,13 +260,15 @@ def leaves(state) -> dict:
 
 
 def reset_in_place(state, init) -> None:
-    """Back to the weights `init` ((G, D) state dicts) and to zero AdamW
-    moments and counts, each written into the tensor the step graphs
-    read."""
+    """Back to the weights `init` ((G, D) state dicts; a sharded state's
+    shards refreshed from them) and to zero AdamW moments and counts, each
+    written into the tensor the step graphs read."""
     with torch.no_grad():
         for net, sd in zip((state.net_g, state.net_d), init):
             for k, v in net.state_dict().items():
                 v.copy_(sd[k])
+        for shards in state.shards.values():
+            shards.refresh()
         for optim in (state.optim_g, state.optim_d):
             for st in optim.state.values():
                 for v in st.values():
@@ -419,19 +454,12 @@ def route_checks(spec, info, state, batch) -> dict:
     With "bench", `bench_train` runs in this process group afterwards
     and its stdout is returned."""
     cfg, out = spec["cfg"], {}
-    calls = []
-    real = dist.all_reduce
-
-    def counting(*args, **kwargs):
-        calls.append(1)
-        return real(*args, **kwargs)
 
     def counted(st, draws=None):
-        calls.clear()
         torch.manual_seed(1)  # dropout
-        with mock.patch.object(dist, "all_reduce", counting):
+        with counting_collectives() as calls:
             metrics = tstep.train_step(st, batch, draws)
-        return len(calls), {k: float(v) for k, v in metrics.items()}
+        return calls["all_reduce"], {k: float(v) for k, v in metrics.items()}
 
     out["all_reduces"], free = counted(state)
     out["views_after_step"] = grad_views(state)
@@ -482,6 +510,57 @@ def route_checks(spec, info, state, batch) -> dict:
     return out
 
 
+DETERMINISTIC = {"enabled": True, "deterministic": True}
+
+
+def tp_checks(spec, info, state, batch, init) -> dict:
+    """The 2-D route on this rank (tests/test_torch_port_tp_graphs.py,
+    chip_smoke.py): `state` (sharded) back to the weights `init` with
+    fresh optimizers of "restart" (else "cfg"); whether it is routed, its
+    stages; on a card its warm-up steps and capture; the collectives of
+    one more step (a replay on a card) by name, that step's route, its
+    keys and `n_model`; then, under the deterministic algorithms, a save
+    (every rank; rank 0 writes the pair) and a step, a resume of that pair
+    and the same step again: whether the two steps' metrics (finite) and
+    weights are bit-equal (both steps start a fresh key's warm-ups: the
+    graphs are dropped before the first, and the resume drops them)."""
+    reset(state, init, spec.get("restart") or spec["cfg"])
+    out = {"routed": tgraphs.routed(state),
+           "stages": len(tstep.step_stages(state, batch))}
+    for _ in range(WARMUP_ITERS + 1 if info.device.type == "cuda" else 0):
+        train_step(state, batch)
+    before = graph_counts(state)
+    torch.manual_seed(1)  # dropout
+    with counting_collectives() as calls:
+        train_step(state, batch)
+    out["collectives"] = dict(calls)
+    out["counted_route"] = route(before, graph_counts(state))
+    out["keys"], out["n_model"] = state.graphs.keys(), state.n_model
+
+    ckpt = os.path.join(spec["out"], "tp_ckpt")
+
+    def step():
+        torch.manual_seed(2)
+        metrics = {k: float(v) for k, v in train_step(state, batch).items()}
+        return metrics, dryrun.digest((state.net_g, state.net_d))
+
+    out["saved_at"] = state.step
+    with algorithms(DETERMINISTIC):
+        checkpoint.save(ckpt, state)
+        dist.barrier()
+        state.graphs.clear()
+        uninterrupted = step()
+        out["resumed"] = checkpoint.resume(ckpt, state)
+        resumed = step()
+        out["resumed_step_equals_uninterrupted"] = resumed == uninterrupted
+        out["resumed_finite"] = all(math.isfinite(v)
+                                    for v in resumed[0].values())
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(ckpt)
+    return out
+
+
 def launch(spec: dict, out_dir: str, timeout: float = 300.0) -> list:
     """Run `spec["world"]` ranks of this script on a free port and return
     their RANK.pt dicts, in rank order; raises with a rank's stderr when
@@ -514,7 +593,7 @@ def main(spec_path: str, rank: int) -> int:
         timed = spec.get("steps", 0)
         init = None
         if (timed or len(spec.get("compare", [{}])) > 1
-                or spec.get("graph_compare")):
+                or spec.get("graph_compare") or "checks" in spec):
             init = tuple({k: v.detach().clone() for k, v in
                           net.state_dict().items()}
                          for net in (state.net_g, state.net_d))
@@ -580,21 +659,12 @@ def main(spec_path: str, rank: int) -> int:
                             capture=setting != reuse)
             for setting in spec.get("graph_compare", ())]
         lap("graph_compare")
-        if "checks" in spec:
-            out["checks"] = route_checks(spec, info, state, batch)
         if n_model > 1:
-            out["sharded"], out["moments"] = {}, {}
-            for prefix, net, optim in (("g", state.net_g, state.optim_g),
-                                       ("d", state.net_d, state.optim_d)):
-                for name, p in net.named_parameters():
-                    if not hasattr(p, "placements"):
-                        continue
-                    out["sharded"][f"{prefix}.{name}"] = placements(p)
-                    moments = optim.state.get(p, {})
-                    if all(getattr(moments.get(k), "placements", None)
-                           == p.placements for k in ("exp_avg",
-                                                     "exp_avg_sq")):
-                        out["moments"][f"{prefix}.{name}"] = placements(p)
+            out["sharded"] = shard_report(state)
+        if "checks" in spec:
+            out["checks"] = (tp_checks(spec, info, state, batch, init)
+                             if n_model > 1 else
+                             route_checks(spec, info, state, batch))
         out["launch_counts"] = dict(mas.launch_counts)
         out["replayed_launches"] = dict(REPLAYED)
         if info.device.type == "cuda":
