@@ -3511,7 +3511,6 @@ def phase_serve_graphs(smi):
             row.update(_graph_numbers(sm, pairs, check))
         row.update(graphs=len(sm.graphs), captures=sm.graphs.captures,
                    replays=sm.graphs.replays,
-                   retry_captures=sm.retry_captures,
                    pool_bytes=sm.graphs.pool_bytes())
         del sm
         torch.cuda.empty_cache()

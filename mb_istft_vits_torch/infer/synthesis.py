@@ -16,8 +16,14 @@ every knob value. The noise is drawn outside the graphs from the
 request's generator, in the eager order: `w_eps` first (with the
 stochastic duration predictor), then the prior's `eps` in the compute
 dtype. A decode that fills its bucket is retried at a larger one, which
-captures there (JAX compiles there too): `retry_captures` counts those.
-On the CPU the bodies run directly.
+captures there (JAX compiles there too). On the CPU the bodies run
+directly.
+
+While a profiler runs, the module records spans
+(`utils.observability.span`): `synth.probe`, the duration probe from its
+launch to the frame bucket known on the host; `synth.dispatch`, the host
+queueing a decode (the noise, the graphs, the copy back); `synth.retry`,
+a decode redone at a larger bucket, the whole redo.
 
 Device traffic: inputs go up through pinned memory without blocking;
 audio comes back as int16 PCM (half the bytes of f32), quantized on the
@@ -85,6 +91,7 @@ from mb_istft_vits_torch.parallel.mesh import (
     shard_batch,
 )
 from mb_istft_vits_torch.text import frontend_ids, get_symbols
+from mb_istft_vits_torch.utils.observability import now_ns, record_span, span
 from mb_istft_vits_torch.weights import load_generator_pth
 
 _instances: Dict[str, "SynthesisModule"] = {}
@@ -131,8 +138,7 @@ class SynthesisModule:
     ignores it where its cache is unusable or a mesh is set).
 
     `graphs` is the module's `infer.graphs.GraphCache` (its captures,
-    replays and capture seconds); `retry_captures` the captures made by
-    decodes retried at a larger frame bucket."""
+    replays and capture seconds)."""
 
     TEXT_BUCKETS = (32, 64, 128, 192, 256, 384)
     FRAME_BUCKETS = (128, 192, 256, 384, 512, 768, 1024, 1536, 2048)
@@ -210,7 +216,6 @@ class SynthesisModule:
         # the serving programs' graphs on a card; knob values as device
         # scalars, per (value, device)
         self.graphs = GraphCache()
-        self.retry_captures = 0
         self._knobs = KnobCache()
 
     # ------------------------------------------------------------------
@@ -450,8 +455,10 @@ class SynthesisModule:
                        w_eps) -> int:
         """Exact output-frame bucket from the duration probe (text
         encoder + duration predictor only), under the decode's `w_eps`."""
-        frames = int(self._predict_frames(x, x_lengths, sid, length_scale,
-                                          noise_scale_w, w_eps)[0])
+        with span("synth.probe"):
+            frames = int(self._predict_frames(x, x_lengths, sid,
+                                              length_scale, noise_scale_w,
+                                              w_eps)[0])
         return self._frame_bucket_capped(frames)
 
     def warmup(self, pairs: Optional[Sequence[Tuple[int, int]]] = None
@@ -558,28 +565,28 @@ class SynthesisModule:
                                          noise_scale_w, w_eps)
         t_dispatch = 0.0
         t_sync = 0.0
-        retry = False
+        retry_ns = None  # the start of a redo at a larger bucket
         while True:
-            td = time.perf_counter()
-            captures = self.graphs.captures
-            pcm16, y_lengths, *z = self._infer(
-                x, x_lengths, sid_arr, noise_scale, length_scale,
-                noise_scale_w, bucket, gen, w_eps, want_z=want_z)
-            if retry:
-                self.retry_captures += self.graphs.captures - captures
-            fetch = [pcm16[0], y_lengths]
-            if want_z:
-                fetch.append(z[0][0])
-            pending = self._fetch(fetch)
-            ts = time.perf_counter()
+            with span("synth.dispatch"):
+                td = time.perf_counter()
+                pcm16, y_lengths, *z = self._infer(
+                    x, x_lengths, sid_arr, noise_scale, length_scale,
+                    noise_scale_w, bucket, gen, w_eps, want_z=want_z)
+                fetch = [pcm16[0], y_lengths]
+                if want_z:
+                    fetch.append(z[0][0])
+                pending = self._fetch(fetch)
+                ts = time.perf_counter()
             t_dispatch += ts - td
             host = pending()
             t_sync += time.perf_counter() - ts
+            if retry_ns is not None:
+                record_span("synth.retry", retry_ns, now_ns())
             y_len = int(host[1][0])
             if y_len < bucket or bucket >= self.MAX_FRAMES:
                 break
+            retry_ns = now_ns()
             bucket = self._frame_bucket_capped(int(bucket * 3 / 2))
-            retry = True
             if seed is not None:  # the same draws again, at the new bucket
                 gen, w_eps = self._draws(x.shape, seed)
         # EMA toward 1.2x the observed ratio, floored at 1.1x so an
@@ -695,23 +702,22 @@ class SynthesisModule:
         gen, w_eps = self._draws(x.shape, seed)
         bucket = self._frames_bucket(x, x_lengths, sid_arr, length_scale,
                                      noise_scale_w, w_eps)
-        retry = False
+        retry_ns = None  # the start of a redo at a larger bucket
         while True:
-            captures = self.graphs.captures
             z, y_lengths, w = self._latents(
                 x, x_lengths, sid_arr, noise_scale, length_scale,
                 noise_scale_w, bucket, gen, w_eps)
-            if retry:
-                self.retry_captures += self.graphs.captures - captures
             fetch = [z[0], y_lengths]
             if return_durations:
                 fetch.append(w[0])
             host = self._fetch(fetch)()
+            if retry_ns is not None:
+                record_span("synth.retry", retry_ns, now_ns())
             y_len = int(host[1][0])
             if y_len < bucket or bucket >= self.MAX_FRAMES:
                 break
+            retry_ns = now_ns()
             bucket = self._frame_bucket_capped(int(bucket * 3 / 2))
-            retry = True
             if seed is not None:
                 gen, w_eps = self._draws(x.shape, seed)
         z = host[0][:y_len]
@@ -1164,26 +1170,30 @@ class SynthesisModule:
             "x": self._to_device(x), "x_lengths": self._to_device(x_lengths),
             "sid": None if sid_arr is None else self._to_device(sid_arr),
             "w_eps": w_eps})
-        frames = [self._predict_frames(p["x"], p["x_lengths"], p["sid"],
-                                       length_scale, noise_scale_w,
-                                       p["w_eps"], i)
-                  for i, p in enumerate(parts)]
-        # capped like the single-request path: one out-of-distribution
-        # row must not size the whole batch's decode without bound
-        bucket = self._frame_bucket_capped(
-            max(int(f.max()) for f in frames))
+        with span("synth.probe"):
+            frames = [self._predict_frames(p["x"], p["x_lengths"],
+                                           p["sid"], length_scale,
+                                           noise_scale_w, p["w_eps"], i)
+                      for i, p in enumerate(parts)]
+            # capped like the single-request path: one out-of-distribution
+            # row must not size the whole batch's decode without bound
+            bucket = self._frame_bucket_capped(
+                max(int(f.max()) for f in frames))
         out_sr = (None if out_sample_rate in (None, self.sampling_rate)
                   else int(out_sample_rate))
-        # the prior's noise after w_eps, as `Synthesizer.infer` draws it
-        eps = self._shard(self._eps(gen, nb, bucket))
-        fetch = []
-        for i, (p, e) in enumerate(zip(parts, eps)):
-            # every device's work is queued before the first copy back
-            fetch += self._infer(p["x"], p["x_lengths"], p["sid"],
-                                 noise_scale, length_scale, noise_scale_w,
-                                 bucket, gen, p["w_eps"], out_sr, eps=e,
-                                 replica=i)
-        host = self._fetch(fetch)()
+        with span("synth.dispatch"):
+            # the prior's noise after w_eps, as `Synthesizer.infer` draws
+            # it (the single-request path's dispatch draws it too)
+            eps = self._shard(self._eps(gen, nb, bucket))
+            fetch = []
+            for i, (p, e) in enumerate(zip(parts, eps)):
+                # every device's work is queued before the first copy back
+                fetch += self._infer(p["x"], p["x_lengths"], p["sid"],
+                                     noise_scale, length_scale,
+                                     noise_scale_w, bucket, gen, p["w_eps"],
+                                     out_sr, eps=e, replica=i)
+            pending = self._fetch(fetch)
+        host = pending()
         pcm_host = np.concatenate(host[0::2])
         y_lens = np.concatenate(host[1::2])
         wavs = pcm_host.astype(np.float32) / 32767.0

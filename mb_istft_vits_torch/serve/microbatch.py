@@ -11,6 +11,13 @@ the single-request path, plus at most the wait window.
 
 The module is called from the worker thread only; it names its device
 explicitly, so the thread's current CUDA device does not matter.
+
+While a profiler runs, the front end records three spans
+(`utils.observability.span`): `serve.queued`, a request from its enqueue
+to the worker taking it into a group; `serve.coalesce`, the worker from
+seeing a first request to taking the group (the wait on an empty queue
+is not one); `serve.decode`, the group taken to every waiter's answer
+set, the error path included.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ from typing import Optional
 
 import numpy as np
 
+from mb_istft_vits_torch.utils.observability import now_ns, record_span, span
+
 
 @dataclass
 class _Pending:
@@ -31,6 +40,7 @@ class _Pending:
     audio: Optional[np.ndarray] = None
     timings: Optional[dict] = None
     error: Optional[BaseException] = None
+    enqueued_ns: int = field(default_factory=now_ns)
 
 
 class MicroBatcher:
@@ -118,28 +128,29 @@ class MicroBatcher:
                 self._lock.wait(timeout=0.1)
             if not self._running:
                 return None, []
-            deadline = time.perf_counter() + self.max_wait
-            biggest = None
-            while self._running:
-                biggest = max((q for q in self._queues.values() if q),
-                              key=len, default=None)
+            with span("serve.coalesce"):
+                deadline = time.perf_counter() + self.max_wait
+                biggest = None
+                while self._running:
+                    biggest = max((q for q in self._queues.values() if q),
+                                  key=len, default=None)
+                    if biggest is None:
+                        return None, []
+                    if (len(biggest) >= self.max_batch
+                            or time.perf_counter() >= deadline):
+                        break
+                    self._lock.wait(timeout=max(
+                        deadline - time.perf_counter(), 1e-4))
                 if biggest is None:
                     return None, []
-                if (len(biggest) >= self.max_batch
-                        or time.perf_counter() >= deadline):
-                    break
-                self._lock.wait(timeout=max(
-                    deadline - time.perf_counter(), 1e-4))
-            if biggest is None:
+                for key, q in self._queues.items():
+                    if q is biggest:
+                        take = q[: self.max_batch]
+                        del q[: self.max_batch]
+                        if not q:  # unique-knob keys must not accumulate
+                            del self._queues[key]
+                        return key, take
                 return None, []
-            for key, q in self._queues.items():
-                if q is biggest:
-                    take = q[: self.max_batch]
-                    del q[: self.max_batch]
-                    if not q:  # unique-knob keys must not accumulate
-                        del self._queues[key]
-                    return key, take
-            return None, []
 
     def _worker(self) -> None:
         while True:
@@ -149,30 +160,38 @@ class MicroBatcher:
                     return
                 continue
             ns, ls, nsw, cleaned, seed = key
-            try:
-                if len(group) == 1:
-                    # no company arrived: single-call path (lowest
-                    # latency for the lone-request case)
-                    audio, t = self.module.synthesize(
-                        group[0].text, group[0].sid, noise_scale=ns,
-                        length_scale=ls, noise_scale_w=nsw,
-                        cleaned=cleaned, seed=seed)
-                    t = dict(t, batched=1)
-                    group[0].audio, group[0].timings = audio, t
-                else:
-                    audios, t = self.module.synthesize_batch(
-                        [g.text for g in group],
-                        sids=[g.sid for g in group], noise_scale=ns,
-                        length_scale=ls, noise_scale_w=nsw,
-                        cleaned=cleaned, seed=seed)
-                    t = dict(t, batched=len(group),
-                             batch_order=[g.text for g in group],
-                             batch_sids=[g.sid for g in group])
-                    for g, a in zip(group, audios):
-                        g.audio, g.timings = a, t
-            except BaseException as e:  # surface to EVERY waiter
-                for g in group:
-                    g.error = e
-            finally:
-                for g in group:
-                    g.done.set()
+            with span("serve.decode") as taken:
+                if taken is not None:
+                    for g in group:
+                        record_span("serve.queued", g.enqueued_ns, taken)
+                self._decode(group, ns, ls, nsw, cleaned, seed)
+
+    def _decode(self, group, ns, ls, nsw, cleaned, seed) -> None:
+        """One decode of `group`: each waiter's audio and timings, or the
+        error; every waiter's `done` is set."""
+        try:
+            if len(group) == 1:
+                # no company arrived: single-call path (lowest latency for
+                # the lone-request case)
+                audio, t = self.module.synthesize(
+                    group[0].text, group[0].sid, noise_scale=ns,
+                    length_scale=ls, noise_scale_w=nsw, cleaned=cleaned,
+                    seed=seed)
+                t = dict(t, batched=1)
+                group[0].audio, group[0].timings = audio, t
+            else:
+                audios, t = self.module.synthesize_batch(
+                    [g.text for g in group], sids=[g.sid for g in group],
+                    noise_scale=ns, length_scale=ls, noise_scale_w=nsw,
+                    cleaned=cleaned, seed=seed)
+                t = dict(t, batched=len(group),
+                         batch_order=[g.text for g in group],
+                         batch_sids=[g.sid for g in group])
+                for g, a in zip(group, audios):
+                    g.audio, g.timings = a, t
+        except BaseException as e:  # surface to EVERY waiter
+            for g in group:
+                g.error = e
+        finally:
+            for g in group:
+                g.done.set()

@@ -22,11 +22,13 @@ import wave
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from mb_istft_vits_torch.dsp import resample as port_rs
 from mb_istft_vits_torch.infer.synthesis import SynthesisModule
 from mb_istft_vits_torch.serve import IncrementalTTS, MicroBatcher, TTSRequest
 from mb_istft_vits_torch.serve.streaming import StreamResampler
+from mb_istft_vits_torch.utils import observability as obs
 from torch_port_data import MS_CONFIG, write_tiny_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -155,6 +157,27 @@ def test_frame_bucket_grows_when_the_decode_fills_it(module):
     assert t["frame_bucket"] > max(y_len, 64)  # grew past the estimate
 
 
+def _spans(log, name):
+    return [(s, e) for n, _, s, e in log.spans(0, 1 << 62)[0] if n == name]
+
+
+def test_a_redo_at_a_larger_bucket_is_a_retry_span(module, monkeypatch):
+    """Under a profiler each redo is one `synth.retry` span holding its
+    own `synth.dispatch`; the dispatch spans are the `dispatch` timing."""
+    log = obs.SpanLog()
+    monkeypatch.setattr(obs, "SPANS", log)
+    module._frames_per_token, module._ratio_observed = 0.01, True
+    with profile(activities=[ProfilerActivity.CPU]):
+        _, t = module.synthesize(TEXT, seed=0)
+    retries, dispatches = (_spans(log, "synth.retry"),
+                           _spans(log, "synth.dispatch"))
+    assert len(retries) >= 1 and len(dispatches) == len(retries) + 1
+    for rs, re in retries:
+        assert sum(rs <= s and e <= re for s, e in dispatches) == 1
+    held = sum(e - s for s, e in dispatches) / 1e9
+    assert abs(held - t["dispatch"]) < 1e-3 * len(dispatches)
+
+
 # -- MicroBatcher -----------------------------------------------------------
 
 
@@ -236,6 +259,52 @@ def test_microbatcher_surfaces_errors(module, monkeypatch):
     with MicroBatcher(module, max_batch=4, max_wait_ms=1.0) as mb:
         with pytest.raises(RuntimeError, match="decode failed"):
             mb.synthesize(SHORT[0])
+
+
+@pytest.mark.parametrize("backend", ["echo", "tiny"])
+def test_microbatcher_spans_each_queue_wait_and_each_decode(
+        backend, request, monkeypatch):
+    """Under a profiler, N concurrent requests give N `serve.queued`
+    spans, each ending where a `serve.decode` starts, one decode span a
+    group and a `serve.coalesce` span before each; a coalesced decode's
+    probe and dispatch spans lie inside its decode span, and its timings
+    still carry no `dispatch`."""
+    target = (_EchoModule() if backend == "echo"
+              else request.getfixturevalue("module"))
+    log = obs.SpanLog()
+    monkeypatch.setattr(obs, "SPANS", log)
+    results = {}
+    gate = threading.Barrier(len(SHORT))
+    with profile(activities=[ProfilerActivity.CPU]):
+        with MicroBatcher(target, max_batch=4, max_wait_ms=200.0) as mb:
+            def call(i):
+                gate.wait()
+                results[i] = mb.synthesize(SHORT[i], seed=7)
+
+            threads = [threading.Thread(target=call, args=(i,))
+                       for i in range(len(SHORT))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=120)
+            assert not any(th.is_alive() for th in threads)
+        # the worker has stopped, so its last decode span is recorded
+    assert sorted(results) == list(range(len(SHORT)))
+    groups = {id(t): t for _, t in results.values()}
+    queued, decodes = _spans(log, "serve.queued"), _spans(log,
+                                                          "serve.decode")
+    assert len(queued) == len(SHORT)
+    assert len(decodes) == len(groups)
+    starts = {s for s, _ in decodes}
+    assert all(s <= e and e in starts for s, e in queued)
+    assert len(_spans(log, "serve.coalesce")) >= len(groups)
+    coalesced = [t for t in groups.values() if t["batched"] >= 2]
+    assert coalesced and all("dispatch" not in t for t in coalesced)
+    if backend == "tiny":
+        for name in ("synth.probe", "synth.dispatch"):
+            got = _spans(log, name)
+            assert got and all(any(ds <= s and e <= de for ds, de in decodes)
+                               for s, e in got)
 
 
 # -- IncrementalTTS ---------------------------------------------------------
