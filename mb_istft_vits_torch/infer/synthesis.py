@@ -61,6 +61,12 @@ overlap. The noise is drawn once for the whole batch, on the first
 device, and sliced by row, so a row's audio does not depend on the mesh,
 as in JAX, where the noise is one global draw that is then sharded.
 
+Threads: the serving entry points may be called from several threads at
+once (the micro-batcher's two workers). The text caches are locked; the
+graphs are replayed one at a time, in the order their callers queue them
+on the card (`infer.graphs`); a seeded request draws from a generator of
+its own, so its audio does not depend on what runs beside it.
+
 Not ported: Orbax checkpoints (the port reads reference `.pth` files).
 `aot_cache_dir` is accepted and unused: a CUDA graph cannot be written to
 disk, so every process captures its own.
@@ -72,6 +78,7 @@ import bisect
 import copy
 import functools
 import math
+import threading
 import time
 from collections import OrderedDict
 from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
@@ -207,14 +214,22 @@ class SynthesisModule:
         # unseeded requests draw from this stream, in call order
         self._generator = torch.Generator(dev).manual_seed(seed)
         # adaptive tokens -> frames ratio for the frame bucket; until the
-        # first observation the duration probe picks the bucket
+        # first observation the duration probe picks the bucket. Callers on
+        # several threads (the micro-batcher's workers) race on it, and
+        # harmlessly: a lost update only picks another bucket estimate, the
+        # bucket a decode ran at is reported, and one that fills is redone
         self._frames_per_token = 3.0
         self._ratio_observed = False
-        # repeated texts skip the frontend and reuse their device inputs
+        # repeated texts skip the frontend and reuse their device inputs;
+        # the lock makes each cache's lookup and eviction one step for
+        # callers on several threads
         self._ids_cache: "OrderedDict" = OrderedDict()
         self._x_cache: "OrderedDict" = OrderedDict()
+        self._cache_lock = threading.Lock()
         # the serving programs' graphs on a card; knob values as device
-        # scalars, per (value, device)
+        # scalars, per (value, device): two threads may make one value
+        # twice, and either tensor serves, since every replay copies its
+        # inputs into the graph's own buffers
         self.graphs = GraphCache()
         self._knobs = KnobCache()
 
@@ -411,16 +426,18 @@ class SynthesisModule:
         cfg = self.data_cfg
         cleaned = cfg.cleaned_text if cleaned is None else cleaned
         key = (text, cleaned)
-        hit = self._ids_cache.get(key)
-        if hit is not None:
-            self._ids_cache.move_to_end(key)
-            return hit
+        with self._cache_lock:
+            hit = self._ids_cache.get(key)
+            if hit is not None:
+                self._ids_cache.move_to_end(key)
+                return hit
         ids = np.asarray(frontend_ids(text, cfg.text_module, cfg.text_cleaners,
                                       cfg.add_blank, cleaned), np.int32)
         ids.setflags(write=False)  # shared across cache hits
-        self._ids_cache[key] = ids
-        while len(self._ids_cache) > 1024:
-            self._ids_cache.popitem(last=False)
+        with self._cache_lock:
+            self._ids_cache[key] = ids
+            while len(self._ids_cache) > 1024:
+                self._ids_cache.popitem(last=False)
         return ids
 
     def _pad_ids(self, ids: np.ndarray
@@ -436,14 +453,16 @@ class SynthesisModule:
         """Device-resident (x, x_lengths) for an id sequence, cached so a
         repeated text uploads nothing."""
         key = ids.tobytes()
-        hit = self._x_cache.get(key)
-        if hit is not None:
-            self._x_cache.move_to_end(key)
-            return hit
+        with self._cache_lock:
+            hit = self._x_cache.get(key)
+            if hit is not None:
+                self._x_cache.move_to_end(key)
+                return hit
         pair = self._pad_ids(ids)
-        self._x_cache[key] = pair
-        while len(self._x_cache) > 256:
-            self._x_cache.popitem(last=False)
+        with self._cache_lock:
+            self._x_cache[key] = pair
+            while len(self._x_cache) > 256:
+                self._x_cache.popitem(last=False)
         return pair
 
     def _frame_bucket_capped(self, n: int) -> int:

@@ -4,20 +4,31 @@
 A single request pays a fixed cost per decode (host dispatch, device
 ramp, the copy back) that dominates short utterances; a batch divides it
 by its rows. `MicroBatcher` gives callers a blocking, thread-safe
-`synthesize(text, ...)` with single-request semantics, while a worker
-thread coalesces requests that arrive within a small window (default
+`synthesize(text, ...)` with single-request semantics, while worker
+threads coalesce requests that arrive within a small window (default
 4 ms) into one `SynthesisModule.synthesize_batch`. A lone request takes
 the single-request path, plus at most the wait window.
 
-The module is called from the worker thread only; it names its device
-explicitly, so the thread's current CUDA device does not matter.
+Two workers hold up to two groups at once. One takes a group at a time
+(coalescing, then taking), and while the other waits on its decode it
+takes the next group and runs its front end, duration probe and
+dispatch, so the next decode is queued on the card right behind the one
+running and the card does not wait for the host between them. Both queue
+on the same stream, so probes, decodes and copies run in the order they
+were queued: the second group's probe waits for the decode ahead of it.
+A third worker would only queue a third probe behind two decodes.
+
+The module is called from the worker threads only; it names its device
+explicitly, so a thread's current CUDA device does not matter, and it is
+safe for two callers (`infer.synthesis`).
 
 While a profiler runs, the front end records three spans
 (`utils.observability.span`): `serve.queued`, a request from its enqueue
-to the worker taking it into a group; `serve.coalesce`, the worker from
-seeing a first request to taking the group (the wait on an empty queue
-is not one); `serve.decode`, the group taken to every waiter's answer
-set, the error path included.
+to a worker taking it into a group; `serve.coalesce`, the taking worker
+from seeing a first request to taking the group (the wait on an empty
+queue is not one); `serve.decode`, the group taken to every waiter's
+answer set, the error path included. The two workers' `serve.decode`
+spans overlap.
 """
 
 from __future__ import annotations
@@ -25,11 +36,14 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
 from mb_istft_vits_torch.utils.observability import now_ns, record_span, span
+
+# worker threads: one decoding while the other readies the next group
+WORKERS = 2
 
 
 @dataclass
@@ -61,24 +75,30 @@ class MicroBatcher:
         self.max_wait = float(max_wait_ms) / 1000.0
         self._lock = threading.Condition()
         self._queues: dict = {}  # knob tuple -> list[_Pending]
+        # held by the worker taking a group: one coalescing window at a time
+        self._taking = threading.Lock()
         self._running = False
-        self._thread: Optional[threading.Thread] = None
+        self._threads: List[threading.Thread] = []
 
     # -- lifecycle -----------------------------------------------------
     def start(self) -> None:
-        if self._running:
-            return
-        self._running = True
-        self._thread = threading.Thread(target=self._worker, daemon=True)
-        self._thread.start()
+        with self._lock:
+            if self._running:
+                return
+            self._running = True
+            self._threads = [threading.Thread(target=self._worker,
+                                              daemon=True)
+                             for _ in range(WORKERS)]
+            for th in self._threads:
+                th.start()
 
     def stop(self) -> None:
         with self._lock:
             self._running = False
             self._lock.notify_all()
-        if self._thread is not None:
-            self._thread.join(timeout=5.0)
-            self._thread = None
+        for th in self._threads:
+            th.join(timeout=5.0)
+        self._threads = []
 
     def __enter__(self):
         self.start()
@@ -154,7 +174,8 @@ class MicroBatcher:
 
     def _worker(self) -> None:
         while True:
-            key, group = self._take_group()
+            with self._taking:
+                key, group = self._take_group()
             if not group:
                 if not self._running:
                     return

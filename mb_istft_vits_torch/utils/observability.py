@@ -14,8 +14,8 @@ process, and then into one bounded in-process log (`SPANS`), on the clock
 of the profiler's host events, so a reader can lay them over the device
 trace of the same window (`recorded_spans`). The log is not the
 profiler's own record: a profiler that traces the CPU records the ranges
-of the thread that started it, and the serving front end works on a
-worker thread and is called from client threads. With no profiler,
+of the thread that started it, and the serving front end works on two
+worker threads and is called from client threads. With no profiler,
 `span` returns one shared null context and records nothing.
 """
 
@@ -244,7 +244,7 @@ def recorded_spans(t0_ns: int, t1_ns: int) -> Tuple[List[Span], int]:
 def _span_events(spans: List[Span], base_ns: int, pid: int) -> List[dict]:
     """Chrome trace events of `spans`: complete events on rows of their
     own, one per recording thread (more where that thread's spans overlap
-    without nesting, such as the queue waits the serving worker records
+    without nesting, such as the queue waits a serving worker records
     for its callers), each row named after its thread."""
     events, rows = [], {}  # (thread, lane) -> (row id, open spans' ends)
     for name, tid, s, e in sorted(spans, key=lambda x: (x[2], -x[3])):

@@ -18,6 +18,7 @@ import sys
 import threading
 import time
 import wave
+from collections import OrderedDict
 
 import numpy as np
 import pytest
@@ -105,6 +106,65 @@ def test_serving_caches_hit(module):
     # beyond the largest text bucket: the next multiple of 64
     assert len(ids) > 64 and x1.shape == (1, 128)
     assert int(l1[0]) == len(ids)
+
+
+class _YieldingLRU(OrderedDict):
+    """A cache that hands the interpreter to another thread after each hit,
+    so that thread runs between a lookup and what follows it."""
+
+    def get(self, key, default=None):
+        hit = super().get(key, default)
+        if hit is not None:
+            time.sleep(1e-4)
+        return hit
+
+
+@pytest.mark.parametrize("cache, capacity", [("_ids_cache", 1024),
+                                             ("_x_cache", 256)])
+def test_serving_caches_are_safe_for_two_threads(tiny_config, cache,
+                                                 capacity):
+    """One thread cycles over as many texts as the cache holds and another
+    over 300 more, so the cache evicts between the first one's lookup of
+    an entry and its use of it (the cache yields after each hit): no
+    error, and every id array and device input equals a serial call's."""
+    texts = [" ".join(SHORT[(i >> (2 * k)) & 3] for k in range(6))
+             for i in range(capacity + 300)]
+    serial = SynthesisModule(tiny_config, seed=3, device="cpu")
+    want = [serial.text_to_ids(t) for t in texts]
+    m = SynthesisModule(tiny_config, seed=3, device="cpu")
+    setattr(m, cache, _YieldingLRU())
+    if cache == "_ids_cache":
+        def call(i):
+            return (m.text_to_ids(texts[i]),)
+    else:
+        def call(i):
+            return m._pad_ids_cached(want[i])
+    got, errors = {}, []
+
+    def take(order):
+        try:
+            for _ in range(3):
+                for i in order:
+                    got[i] = call(i)
+        except Exception as e:  # noqa: BLE001 - asserted below
+            errors.append(e)
+
+    threads = [threading.Thread(target=take, args=(order,)) for order in
+               (range(capacity), range(capacity, len(texts)))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors[:3]
+    assert len(getattr(m, cache)) == capacity
+    assert sorted(got) == list(range(len(texts)))
+    for i, out in got.items():
+        if cache == "_ids_cache":
+            np.testing.assert_array_equal(out[0], want[i])
+        else:
+            x, xl = serial._pad_ids(want[i])
+            assert torch.equal(out[0], x) and torch.equal(out[1], xl)
 
 
 def test_raw_japanese_text_is_not_ported(module, monkeypatch):
@@ -259,6 +319,127 @@ def test_microbatcher_surfaces_errors(module, monkeypatch):
     with MicroBatcher(module, max_batch=4, max_wait_ms=1.0) as mb:
         with pytest.raises(RuntimeError, match="decode failed"):
             mb.synthesize(SHORT[0])
+
+
+class _GatedModule:
+    """Stand-in for the module whose decode of a group waits until the test
+    opens the gate of the group's first text, then gives each text's echo
+    (`_EchoModule`), or raises if a text starts with "bad". It records
+    each group it was called with and the most it held at once."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.gates = {}
+        self.calls, self.held, self.most = [], 0, 0
+
+    def gate(self, text):
+        with self._lock:
+            return self.gates.setdefault(text, threading.Event())
+
+    def _decode(self, texts):
+        gate = self.gate(texts[0])
+        with self._lock:
+            self.calls.append(list(texts))
+            self.held += 1
+            self.most = max(self.most, self.held)
+        try:
+            if not gate.wait(timeout=60):
+                raise TimeoutError(f"the test never opened {texts[0]!r}")
+        finally:
+            with self._lock:
+                self.held -= 1
+        if any(t.startswith("bad") for t in texts):
+            raise RuntimeError(f"decode of {texts} failed")
+        return [_EchoModule._audio(t) for t in texts]
+
+    def synthesize(self, text, sid=None, **kwargs):
+        return self._decode([text])[0], {}
+
+    def synthesize_batch(self, texts, sids=None, **kwargs):
+        return self._decode(texts), {}
+
+
+class _Callers:
+    """Callers of a micro-batcher, each on a thread of its own: `send`
+    starts one, `answers` and `errors` hold what each text got."""
+
+    def __init__(self, mb):
+        self.mb, self.threads, self.answers, self.errors = mb, [], {}, {}
+
+    def send(self, text):
+        def call():
+            try:
+                self.answers[text] = self.mb.synthesize(text, timeout=60)
+            except RuntimeError as e:
+                self.errors[text] = e
+
+        self.threads.append(threading.Thread(target=call))
+        self.threads[-1].start()
+
+    def join(self):
+        for th in self.threads:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in self.threads)
+
+
+def _queued(mb):
+    with mb._lock:
+        return sum(len(q) for q in mb._queues.values())
+
+
+def test_microbatcher_takes_the_next_group_while_one_decodes():
+    """While one group's decode is held, the front end takes the next group
+    and calls the module for it; it never holds a third, and a group freed
+    is replaced by the queue's next. Every caller gets its own row."""
+    gated = _GatedModule()
+    with MicroBatcher(gated, max_batch=2, max_wait_ms=1.0) as mb:
+        callers = _Callers(mb)
+        callers.send("a")
+        assert _wait(lambda: gated.held == 1)
+        callers.send("b")  # the second worker takes it while "a" decodes
+        assert _wait(lambda: gated.held == 2)
+        callers.send("c")
+        callers.send("d")
+        assert _wait(lambda: _queued(mb) == 2)
+        time.sleep(0.2)  # time enough for a third worker to take them
+        assert gated.calls == [["a"], ["b"]] and _queued(mb) == 2
+        gated.gate("a").set()
+        assert _wait(lambda: "a" in callers.answers and gated.held == 2)
+        assert sorted(gated.calls[2]) == ["c", "d"] and "b" not in (
+            callers.answers)
+        gated.gate("b").set()
+        gated.gate(gated.calls[2][0]).set()
+        callers.join()
+    assert gated.most == 2 and len(gated.calls) == 3
+    assert sorted(callers.answers) == ["a", "b", "c", "d"]
+    for text, (audio, t) in callers.answers.items():
+        np.testing.assert_array_equal(audio, _EchoModule._audio(text))
+        assert t["batched"] == (2 if text in ("c", "d") else 1)
+
+
+def test_microbatcher_error_reaches_only_its_own_group():
+    """A decode that raises answers its own callers with the error, while
+    the group decoding beside it answers with its audio, and the front end
+    goes on serving."""
+    gated = _GatedModule()
+    with MicroBatcher(gated, max_batch=2, max_wait_ms=1.0) as mb:
+        callers = _Callers(mb)
+        callers.send("good")
+        assert _wait(lambda: gated.held == 1)
+        callers.send("bad")
+        assert _wait(lambda: gated.held == 2)
+        gated.gate("bad").set()
+        assert _wait(lambda: "bad" in callers.errors)
+        assert not callers.answers and gated.held == 1
+        gated.gate("good").set()
+        gated.gate("after").set()
+        callers.send("after")
+        callers.join()
+    assert sorted(callers.answers) == ["after", "good"]
+    assert list(callers.errors) == ["bad"]
+    assert "failed" in str(callers.errors["bad"])
+    for text, (audio, _) in callers.answers.items():
+        np.testing.assert_array_equal(audio, _EchoModule._audio(text))
 
 
 @pytest.mark.parametrize("backend", ["echo", "tiny"])

@@ -5,9 +5,10 @@ Off (no profiler), `span` is one shared null context and nothing is
 recorded. On, spans from every thread land in one bounded log, on the
 clock of the profiler's host events: a span opened around a
 `record_function` block brackets that range's own stamps. A full log
-counts its drops, and a metric then reports nothing. The six serving
+counts its drops, and a metric then reports nothing. The seven serving
 metrics of `perfbench/metrics/` read planted spans over a planted trace
-as computed by hand, and nothing without spans or without the recorder.
+as computed by hand, and nothing without spans or without the recorder;
+`serve_overlap_share` reads spans of two threads.
 `profile_trace` writes the spans into its Chrome trace on the trace's
 own time base, on rows of their own.
 """
@@ -150,7 +151,8 @@ def test_a_full_log_loses_no_count_under_many_threads():
 
 READERS = ["serve_queue_ms", "device_idle.serve_coalesce",
            "device_idle.serve_decode", "serve_probe_ms",
-           "serve_dispatch_all_ms", "serve_retry_share"]
+           "serve_dispatch_all_ms", "serve_retry_share",
+           "serve_overlap_share"]
 
 # a 1,000 ns window: the device busy over [100, 300) and [600, 700)
 TRACE = TraceData(0, 1000, device=[(100, 200, "k"), (150, 300, "k"),
@@ -176,6 +178,7 @@ EXPECTED = {
     "serve_probe_ms": 50 / MS,  # of 70, 30 ns
     "serve_dispatch_all_ms": 30 / MS,  # of 50, 30, 5 ns
     "serve_retry_share": 50.0,  # 1 retry, 2 decodes
+    "serve_overlap_share": 0.0,  # one thread's decodes never overlap
 }
 
 
@@ -218,6 +221,42 @@ def test_reader_reads_nothing_from_a_program_without_the_recorder(
     monkeypatch.setitem(sys.modules,
                         "mb_istft_vits_torch.utils.observability", None)
     assert reader(name)(None, {}, TRACE) is None
+
+
+def _record_on_two_threads(log, mine, theirs):
+    """Record `mine` on this thread and `theirs` on another, alive at once
+    so their ids differ."""
+    other = threading.Thread(
+        target=lambda: [log.record(*p) for p in theirs])
+    other.start()
+    other.join(timeout=10)
+    assert not other.is_alive()
+    for p in mine:
+        log.record(*p)
+
+
+@pytest.mark.parametrize("mine, theirs, expected", [
+    # the other's decode starts inside my first, my second inside theirs
+    ([("serve.decode", 100, 400), ("serve.decode", 500, 800)],
+     [("serve.decode", 300, 600)], 200 / 3),
+    # taking turns, never two open at once
+    ([("serve.decode", 100, 200), ("serve.decode", 500, 600)],
+     [("serve.decode", 300, 400), ("serve.decode", 700, 900)], 0.0),
+    # the other thread's spans of other names do not count
+    ([("serve.decode", 100, 400)],
+     [("serve.coalesce", 150, 300), ("synth.probe", 200, 350)], 0.0),
+], ids=["overlapping", "disjoint", "other-names"])
+def test_overlap_share_counts_decodes_starting_in_another_threads(
+        mine, theirs, expected, reader, log):
+    _record_on_two_threads(log, mine, theirs)
+    got = reader("serve_overlap_share")(None, {}, TRACE)
+    assert got == pytest.approx(expected)
+
+
+def test_overlap_share_reads_nothing_without_decode_spans(reader, log):
+    _record_on_two_threads(log, [("serve.coalesce", 100, 200)],
+                           [("synth.dispatch", 150, 250)])
+    assert reader("serve_overlap_share")(None, {}, TRACE) is None
 
 
 def test_idle_shares_add_up_to_no_more_than_the_device_idle_share(
