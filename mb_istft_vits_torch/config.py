@@ -96,15 +96,16 @@ class ModelConfig:
 
     @property
     def decoder_kind(self) -> str:
-        """Decoder dispatch, mirroring reference `models.py:634-644`."""
+        """Decoder dispatch, mirroring reference `models.py:634-644`; a
+        config that sets none of the three iSTFT flags is VITS's own, whose
+        decoder is the HiFi-GAN generator (VITS `models.py:Generator`)."""
         if self.mb_istft_vits:
             return "mb_istft"
         if self.ms_istft_vits:
             return "ms_istft"
         if self.istft_vits:
             return "istft"
-        raise ValueError("No decoder variant selected in model config "
-                         "(set one of mb_istft_vits/ms_istft_vits/istft_vits)")
+        return "hifigan"
 
     @staticmethod
     def from_hparams(hps: HParams, n_vocab: int) -> "ModelConfig":

@@ -3,8 +3,9 @@
 the step's generator forward, its D step and its G step as the port
 splits them (`train/step.py`: one forward shared by both halves, so it
 is counted once, where the port computes it), of the whole step, and of
-`Synthesizer.infer` at `--infer-frames`; each against the card's peaks.
-Prints ONE JSON line.
+`Synthesizer.infer` at `--infer-frames`, with the decoder head's part
+of it (`infer.decoder`: its kind and GFLOP); each against the card's
+peaks. Prints ONE JSON line.
 
     python -m mb_istft_vits_torch.flops_analysis [--batch 32] \
         [--infer-frames 512] [--peak-tflops T] [--hbm-gbps 3350] \
@@ -62,15 +63,19 @@ def count_step(state, batch) -> dict:
 
 
 def count_infer(cfg, device, x, x_lengths, frames: int) -> dict:
-    """Counts of `Synthesizer.infer` on one row at `frames` frames."""
+    """Counts of `Synthesizer.infer` on one row at `frames` frames, with
+    the name its decoder's counts are kept under (`decoder`)."""
     from mb_istft_vits_torch.models import Synthesizer
 
     torch.manual_seed(0)
     model = Synthesizer(cfg.model).to(device).eval()
     gen = torch.Generator(device).manual_seed(0)
     with torch.no_grad():
-        return timing.count(lambda: model.infer(
+        counts = timing.count(lambda: model.infer(
             x, x_lengths, max_frames=frames, generator=gen))
+    # infer is a method, so each module is kept under its class's name
+    counts["decoder"] = type(model.dec).__name__
+    return counts
 
 
 def top_modules(counts: dict) -> dict:
@@ -130,6 +135,10 @@ def main(argv=None) -> int:
                     "frames": args.infer_frames, "audio_s": audio_s,
                     "top_modules": top_modules(infer)}
     out["infer"]["rtf_floor"] = out["infer"]["sol_ms"] / 1e3 / audio_s
+    # the decoder head's part: VITS's HiFi-GAN or one of the iSTFT heads
+    out["infer"]["decoder"] = {
+        "kind": cfg.model.decoder_kind,
+        "gflop": sum(infer["by_module"][infer["decoder"]].values()) / 1e9}
     timing.emit({"metric": "flops_analysis", "batch": args.batch,
                  "spec_frames": args.spec_frames, "text_len": args.text_len,
                  "precision": precision, "peak_tflops": peak / 1e12,

@@ -23,7 +23,10 @@ While a profiler runs, the module records spans
 (`utils.observability.span`): `synth.probe`, the duration probe from its
 launch to the frame bucket known on the host; `synth.dispatch`, the host
 queueing a decode (the noise, the graphs, the copy back); `synth.retry`,
-a decode redone at a larger bucket, the whole redo.
+a decode redone at a larger bucket, the whole redo. It also counts
+(`utils.observability.record_count`) each decode of a request or a batch
+as `synth.frames`: (rows of the batch bucket, frame bucket, each real
+row's frames, each real row's ids).
 
 Device traffic: inputs go up through pinned memory without blocking;
 audio comes back as int16 PCM (half the bytes of f32), quantized on the
@@ -98,7 +101,9 @@ from mb_istft_vits_torch.parallel.mesh import (
     shard_batch,
 )
 from mb_istft_vits_torch.text import frontend_ids, get_symbols
-from mb_istft_vits_torch.utils.observability import now_ns, record_span, span
+from mb_istft_vits_torch.utils.observability import (now_ns, record_count,
+                                                      record_span, recording,
+                                                      span)
 from mb_istft_vits_torch.weights import load_generator_pth
 
 _instances: Dict[str, "SynthesisModule"] = {}
@@ -408,10 +413,19 @@ class SynthesisModule:
         """z windows [N, T, C] of speaker `sid`, on the device of mesh
         position `replica` -> (spec, phase) there, [N, F, s, bins]
         ([N, F, bins] for the iSTFT head)."""
+        self._require_spectrogram("decode_spec")
         dev = self._replicas[replica][0]
         return self._program("decode_spec", z,
                              self._sid_rows(len(z), sid, dev),
                              replica=replica)
+
+    def _require_spectrogram(self, route: str) -> None:
+        """Raise for a spectrogram-domain route on a head without one."""
+        if self.cfg.decoder_kind == "hifigan":
+            raise ValueError(
+                f"{route} joins the decoder's spectrogram, and the HiFi-GAN "
+                "head has none: it decodes to a waveform directly (decode "
+                "chunks with stream_from_latents or decode_chunks_batched)")
 
     # ------------------------------------------------------------------
     # text frontend
@@ -602,6 +616,7 @@ class SynthesisModule:
             if retry_ns is not None:
                 record_span("synth.retry", retry_ns, now_ns())
             y_len = int(host[1][0])
+            record_count("synth.frames", (1, bucket, (y_len,), (len(ids),)))
             if y_len < bucket or bucket >= self.MAX_FRAMES:
                 break
             retry_ns = now_ns()
@@ -1035,6 +1050,7 @@ class SynthesisModule:
         the joined spectrogram. ``frame_xcorr`` adds a frame-shift search
         at each join; ``batched`` decodes all chunks as one batch (split
         over the mesh), else chunk by chunk in a one-deep pipeline."""
+        self._require_spectrogram("decode_spec_join")
         t_total = z.shape[0]
         if t_total == 0:
             return np.zeros((0,), np.float32)
@@ -1215,6 +1231,10 @@ class SynthesisModule:
         host = pending()
         pcm_host = np.concatenate(host[0::2])
         y_lens = np.concatenate(host[1::2])
+        if recording():
+            record_count("synth.frames", (
+                nb, bucket, tuple(int(v) for v in y_lens[:n]),
+                tuple(len(i) for i in ids_list)))
         wavs = pcm_host.astype(np.float32) / 32767.0
         sr_out = out_sr or self.sampling_rate
         if out_sr is None:

@@ -1,14 +1,18 @@
 """Waveform decoders: the iSTFT, multi-band iSTFT and multi-stream iSTFT
 heads (counterpart of `mb_istft_vits_tpu/models/decoders.py`; reference
-`models.py:248-475`).
+`models.py:248-475`), and VITS's own HiFi-GAN generator (VITS
+`models.py:Generator`), which the JAX package does not have.
 
 Trunk: conv_pre -> [ConvTranspose upsample -> mean of N ResBlocks] x L ->
-leaky_relu -> ReflectionPad(1, 0) -> post conv; then an exp / pi*sin
-spec-phase head and an iSTFT: one full-band iSTFT (`ISTFTGenerator`), or
-one per band followed by PQMF synthesis (`MultibandISTFTGenerator`) or by
-zero-stuffing and a learned 63-tap synthesis conv
-(`MultistreamISTFTGenerator`). The speaker conditioning g [B, gin, 1]
-reaches every ResBlock of the trunk.
+leaky_relu. The iSTFT heads go on with ReflectionPad(1, 0) -> post conv,
+then an exp / pi*sin spec-phase head and an iSTFT: one full-band iSTFT
+(`ISTFTGenerator`), or one per band followed by PQMF synthesis
+(`MultibandISTFTGenerator`) or by zero-stuffing and a learned 63-tap
+synthesis conv (`MultistreamISTFTGenerator`); their speaker conditioning
+g [B, gin, 1] reaches every ResBlock of the trunk. The HiFi-GAN head
+(`HiFiGANGenerator`) goes on with a 7-tap conv to one channel and tanh:
+its conv_pre has no weight norm, its conv_post neither weight norm nor
+bias, and g enters once, through a 1x1 `cond` conv added after conv_pre.
 
 Precision: the spec-phase head and everything after it (the iSTFT, PQMF
 synthesis, the multi-stream synthesis conv) run in float32 whatever the
@@ -60,12 +64,16 @@ class _UpsamplerTrunk(nn.Module):
                  resblock_kernel_sizes: Sequence[int],
                  resblock_dilation_sizes: Sequence[Sequence[int]],
                  upsample_rates: Sequence[int], upsample_initial_channel: int,
-                 upsample_kernel_sizes: Sequence[int], gin_channels: int = 0):
+                 upsample_kernel_sizes: Sequence[int], gin_channels: int = 0,
+                 weight_norm_pre: bool = True):
         super().__init__()
         self.num_kernels = len(resblock_kernel_sizes)
         res_cls = ResBlock1 if resblock == "1" else ResBlock2
         self.conv_pre = Conv1d(initial_channel, upsample_initial_channel, 7,
-                               padding=3, weight_norm=True)
+                               padding=3, weight_norm=weight_norm_pre)
+        # the HiFi-GAN head's speaker conv after conv_pre (the iSTFT heads
+        # condition each ResBlock instead)
+        self.cond: Optional[nn.Module] = None
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
         ch = upsample_initial_channel
@@ -79,11 +87,13 @@ class _UpsamplerTrunk(nn.Module):
                                               gin_channels=gin_channels))
         self.out_channels = ch
 
-    def trunk(self, x: torch.Tensor,
-              g: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The trunk through the left reflection pad: [B, C, T] ->
-        [B, ch, T * prod(upsample_rates) + 1]."""
+    def upsample(self, x: torch.Tensor,
+                 g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """conv_pre (and `cond`), the upsample / ResBlock stack, then the
+        final leaky_relu: [B, C, T] -> [B, ch, T * prod(upsample_rates)]."""
         x = self.conv_pre(x)
+        if g is not None and self.cond is not None:
+            x = x + self.cond(g)
         n = self.num_kernels
         for i, up in enumerate(self.ups):
             x = up(leaky_relu(x))
@@ -93,7 +103,45 @@ class _UpsamplerTrunk(nn.Module):
                 xs = y if xs is None else xs + y
             x = xs / n
         # F.leaky_relu's default slope (models.py:291)
-        return _reflection_pad_left1(leaky_relu(x, 0.01))
+        return leaky_relu(x, 0.01)
+
+    def trunk(self, x: torch.Tensor,
+              g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The iSTFT heads' trunk, through the left reflection pad:
+        [B, C, T] -> [B, ch, T * prod(upsample_rates) + 1]."""
+        return _reflection_pad_left1(self.upsample(x, g))
+
+
+class HiFiGANGenerator(_UpsamplerTrunk):
+    """VITS's decoder (VITS `models.py:Generator`): the trunk with a plain
+    conv_pre, the speaker added once after it through a 1x1 `cond` conv
+    (the ResBlocks take no speaker), then leaky_relu, a 7-tap conv to one
+    channel with no bias and no weight norm, and tanh. No spectrogram:
+    `forward`'s sub-band, spec and phase outputs are None."""
+
+    def __init__(self, initial_channel: int, resblock: str,
+                 resblock_kernel_sizes: Sequence[int],
+                 resblock_dilation_sizes: Sequence[Sequence[int]],
+                 upsample_rates: Sequence[int], upsample_initial_channel: int,
+                 upsample_kernel_sizes: Sequence[int], gin_channels: int = 0):
+        super().__init__(initial_channel, resblock, resblock_kernel_sizes,
+                         resblock_dilation_sizes, upsample_rates,
+                         upsample_initial_channel, upsample_kernel_sizes,
+                         weight_norm_pre=False)
+        self.conv_post = Conv1d(self.out_channels, 1, 7, padding=3,
+                                bias=False)
+        if gin_channels:
+            self.cond = Conv1d(gin_channels, upsample_initial_channel, 1)
+
+    def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None):
+        """x [B, C, T] -> (o [B, 1, T * prod(upsample_rates)], None, None,
+        None)."""
+        return torch.tanh(self.conv_post(self.upsample(x, g))), None, None, \
+            None
+
+    def spec_tail(self, spec, phase):
+        raise ValueError("the HiFi-GAN head decodes to a waveform directly: "
+                         "it has no spectrogram to join")
 
 
 class ISTFTGenerator(_UpsamplerTrunk):

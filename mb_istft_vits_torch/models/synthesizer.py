@@ -28,6 +28,7 @@ import torch.nn as nn
 
 from mb_istft_vits_torch.config import ModelConfig
 from mb_istft_vits_torch.models.decoders import (
+    HiFiGANGenerator,
     ISTFTGenerator,
     MultibandISTFTGenerator,
     MultistreamISTFTGenerator,
@@ -55,10 +56,12 @@ def _cl(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2)
 
 
-def _spec_to_jax(x: torch.Tensor) -> torch.Tensor:
+def _spec_to_jax(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """A head's spec or phase to JAX's layout: [B, s, bins, T'] ->
     [B, T', s, bins] (sub-band heads), [B, bins, T'] -> [B, T', bins]
-    (the iSTFT head)."""
+    (the iSTFT head); None (the HiFi-GAN head has none) stays None."""
+    if x is None:
+        return None
     return x.permute(0, 3, 1, 2) if x.dim() == 4 else _cl(x)
 
 
@@ -115,10 +118,12 @@ def mas_neg_cent(z_p: torch.Tensor, m_p: torch.Tensor,
 class InferOutput(NamedTuple):
     o: torch.Tensor                 # [B, T_wav, 1]
     # mb_istft: sub-band waveforms [B, s, T_band]; ms_istft: the
-    # zero-stuffed synthesis-conv input [B, s, T_band * s]; istft: None
+    # zero-stuffed synthesis-conv input [B, s, T_band * s]; istft and
+    # hifigan: None
     o_mb: Optional[torch.Tensor]
-    spec: torch.Tensor              # [B, T', s, bins] ([B, T', bins]: istft)
-    phase: torch.Tensor             # as spec
+    # [B, T', s, bins] ([B, T', bins]: istft; None: hifigan)
+    spec: Optional[torch.Tensor]
+    phase: Optional[torch.Tensor]   # as spec
     attn: torch.Tensor              # [B, max_frames, T_x]
     y_mask: torch.Tensor            # [B, max_frames, 1]
     y_lengths: torch.Tensor         # [B] frames
@@ -128,7 +133,8 @@ class InferOutput(NamedTuple):
 class Synthesizer(nn.Module):
     """SynthesizerTrn equivalent (reference models.py:568-798) with the
     deterministic or (`use_sdp`) the stochastic duration predictor, any of
-    the three decoder heads, and a speaker embedding `emb_g` when the
+    the three iSTFT decoder heads or VITS's HiFi-GAN generator (a config
+    that sets no iSTFT flag), and a speaker embedding `emb_g` when the
     model has more than one speaker."""
 
     def __init__(self, cfg: ModelConfig):
@@ -140,13 +146,16 @@ class Synthesizer(nn.Module):
             cfg.filter_channels, cfg.n_heads, cfg.n_layers, cfg.kernel_size,
             cfg.p_dropout)
         kind = cfg.decoder_kind
-        head = () if kind == "istft" else (cfg.subbands,)
-        self.dec = _DECODERS[kind](
-            cfg.inter_channels, cfg.resblock, cfg.resblock_kernel_sizes,
-            cfg.resblock_dilation_sizes, cfg.upsample_rates,
-            cfg.upsample_initial_channel, cfg.upsample_kernel_sizes,
-            cfg.gen_istft_n_fft, cfg.gen_istft_hop_size, *head,
-            gin_channels=gin)
+        trunk = (cfg.inter_channels, cfg.resblock, cfg.resblock_kernel_sizes,
+                 cfg.resblock_dilation_sizes, cfg.upsample_rates,
+                 cfg.upsample_initial_channel, cfg.upsample_kernel_sizes)
+        if kind == "hifigan":
+            self.dec = HiFiGANGenerator(*trunk, gin_channels=gin)
+        else:
+            head = () if kind == "istft" else (cfg.subbands,)
+            self.dec = _DECODERS[kind](
+                *trunk, cfg.gen_istft_n_fft, cfg.gen_istft_hop_size, *head,
+                gin_channels=gin)
         self.enc_q = PosteriorEncoder(cfg.spec_channels, cfg.inter_channels,
                                       cfg.hidden_channels, 5, 1, 16,
                                       gin_channels=gin)
@@ -416,7 +425,8 @@ class Synthesizer(nn.Module):
         """The decoder head's back half, (spec, phase) [B, F, s, bins]
         ([B, F, bins] for the iSTFT head) -> waveform [B, T_wav, 1]: the
         same code and filters as the forward pass, for the serving
-        spectrogram-domain join."""
+        spectrogram-domain join. The HiFi-GAN head has no spectrogram and
+        raises."""
         return _cl(self.dec.spec_tail(_spec_from_jax(spec),
                                       _spec_from_jax(phase)))
 

@@ -37,7 +37,10 @@ the whole batch (the KL over sum(z_mask), the duration loss over
 sum(x_mask)): each rank's term is scaled by world * local sum / global
 sum, so the average of the ranks' gradients is the global loss's. A
 plain state (no group) runs the same three stages with no buffer and no
-collective; a group of one rank runs them with both.
+collective; a group of one rank runs them with both. While a profiler
+runs, each collective between two stages is recorded as the span
+`train.collective` (`utils.observability.span`), from its launch to its
+return on the host.
 
 A state sharded over a data x model mesh (`TrainState.shards`) averages
 its whole gradients over every rank the same way (each "model" rank of a
@@ -92,6 +95,7 @@ from mb_istft_vits_torch.losses import (
 )
 from mb_istft_vits_torch.models import MultiPeriodDiscriminator, Synthesizer
 from mb_istft_vits_torch.ops import slice_segments
+from mb_istft_vits_torch.utils.observability import span
 
 WEIGHT_DECAY = 0.01  # torch.optim.AdamW's default (train_latest.py:103-112)
 
@@ -674,7 +678,8 @@ def drive(state: TrainState, run: Callable[[int], Any], n: int) -> Any:
     out = None
     for i in range(n):
         if i and schedule:
-            schedule[i - 1]()
+            with span("train.collective"):
+                schedule[i - 1]()
         out = run(i)
     return out
 

@@ -17,6 +17,11 @@ profiler's own record: a profiler that traces the CPU records the ranges
 of the thread that started it, and the serving front end works on two
 worker threads and is called from client threads. With no profiler,
 `span` returns one shared null context and records nothing.
+
+Counts: `record_count(name, values)` logs a tuple of numbers stamped on
+the same clock, under the same rule (only while a profiler runs), into
+a second log of the same kind (`COUNTS`, read by `recorded_counts`): the
+serving module's `synth.frames`, each decode's rows and frames.
 """
 
 from __future__ import annotations
@@ -166,7 +171,9 @@ SPAN_ROW_BASE = 1 << 30
 
 class SpanLog:
     """A bounded log of spans, safe to append from any thread. When full
-    it drops its oldest span for each new one and counts the drops."""
+    it drops its oldest span for each new one and counts the drops. The
+    count log (`COUNTS`) is one too: its entries are spans of no length
+    that carry their values after the end stamp."""
 
     def __init__(self, maxlen: int = SPAN_LOG_SPANS):
         self._spans: "collections.deque[Span]" = collections.deque(
@@ -175,11 +182,12 @@ class SpanLog:
         self.dropped = 0
         self._dropped_end_ns = -1  # the latest end among the dropped
 
-    def record(self, name: str, start_ns: int, end_ns: int) -> None:
+    def record(self, name: str, start_ns: int, end_ns: int,
+               *values) -> None:
         # the thread's id as set at its start: `get_native_id()` is a
         # system call on every use
         item = (name, threading.current_thread().native_id, start_ns,
-                end_ns)
+                end_ns, *values)
         with self._lock:
             if len(self._spans) == self._spans.maxlen:
                 self.dropped += 1
@@ -239,6 +247,35 @@ def recorded_spans(t0_ns: int, t1_ns: int) -> Tuple[List[Span], int]:
     that starts in [t0_ns, t1_ns), and the count of spans the log dropped
     that may have been among them (0: the list is whole)."""
     return SPANS.spans(t0_ns, t1_ns)
+
+
+# (name, stamp ns, values): `record_count`'s entries, as read back
+Count = Tuple[str, int, tuple]
+
+COUNTS = SpanLog()
+
+
+def recording() -> bool:
+    """Whether spans and counts are recorded now (a profiler runs): a
+    caller whose values cost something to gather asks first."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def record_count(name: str, values) -> None:
+    """Log `values` (a tuple of numbers, or of tuples of them) under
+    `name`, stamped now, while a profiler runs."""
+    if _autograd_profiler._is_profiler_enabled:
+        stamp = now_ns()
+        COUNTS.record(name, stamp, stamp, tuple(values))
+
+
+def recorded_counts(t0_ns: int, t1_ns: int) -> Tuple[List[Count], int]:
+    """(name, stamp_ns, values) of every logged count stamped in
+    [t0_ns, t1_ns), and the count of entries the log dropped that may
+    have been among them (0: the list is whole)."""
+    got, dropped = COUNTS.spans(t0_ns, t1_ns)
+    return [(name, stamp, values) for name, _, stamp, _, values in got], \
+        dropped
 
 
 def _span_events(spans: List[Span], base_ns: int, pid: int) -> List[dict]:

@@ -16,6 +16,10 @@ The stochastic duration predictor's `ElementwiseAffine` parameters
 (`dp.flows.0.m`, `dp.post_flows.0.logs`, ...) are [2, 1] in the reference
 and in the port; the JAX exporter writes them as (2,), so
 `load_generator_pth` reshapes those.
+
+VITS's own `G_*.pth` (a config with no iSTFT flag: the HiFi-GAN decoder)
+loads as it is too: `dec.conv_pre.weight` plain, `dec.cond.*`, and
+`dec.conv_post.weight` with no bias.
 """
 
 from __future__ import annotations
@@ -41,7 +45,11 @@ def state_dict_from_jax(params: Mapping, cfg: ModelConfig
 
     Layouts: a JAX conv kernel is [k, in, out]; torch Conv1d is
     [out, in, k] and ConvTranspose1d [in, out, k]. Weight norm's g is a
-    vector in JAX and [n, 1, 1] in torch."""
+    vector in JAX and [n, 1, 1] in torch. The JAX package has no HiFi-GAN
+    head, so a config without an iSTFT flag raises."""
+    if cfg.decoder_kind == "hifigan":
+        raise ValueError("the JAX package has no HiFi-GAN decoder: a VITS "
+                         "config's weights load from a reference G_*.pth")
     sd: Dict[str, torch.Tensor] = {}
 
     def node(path):
