@@ -38,4 +38,13 @@ run on CUDA unless the caller passes device="cpu".
 
 __version__ = "0.1.0"
 
+import os as _os
+
+# cuDNN engines the port never takes (`cudnn_errata.json`, where each is
+# named with why): torch's cuDNN frontend reads the file this names once,
+# at the process's first convolution, and skips the engines it lists when
+# it ranks a convolution's plans. A file the caller names is kept.
+_os.environ.setdefault("CUDNN_ERRATA_JSON_FILE", _os.path.join(
+    _os.path.dirname(_os.path.abspath(__file__)), "cudnn_errata.json"))
+
 from mb_istft_vits_torch.config import HParams, load_hparams  # noqa: F401,E402

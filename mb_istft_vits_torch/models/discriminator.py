@@ -92,16 +92,34 @@ class MultiPeriodDiscriminator(nn.Module):
 
     def forward(self, y: torch.Tensor, y_hat: torch.Tensor):
         """Real y and generated y_hat [B, 1, T] -> (y_d_rs, y_d_gs,
-        fmap_rs, fmap_gs), one entry per sub-discriminator. Both go
-        through each sub-discriminator as one batch of 2B: the convs see
-        each item alone, so this is the reference's two passes in one."""
+        fmap_rs, fmap_gs), one entry per sub-discriminator.
+
+        The convs see each item alone, so both halves go through each
+        sub-discriminator as one batch of 2B: the reference's two passes in
+        one. Only when y_hat takes a gradient and nothing else can (y needs
+        none, nor does any of D's parameters: the generator's step, where
+        the real maps are targets) does the real half go alone under
+        `no_grad`, so autograd records, and the backward runs, the B fake
+        rows only."""
         b = y.shape[0]
-        both = torch.cat([y, y_hat.to(y.dtype)])
+        y_hat = y_hat.to(y.dtype)
+        real_is_target = (
+            torch.is_grad_enabled() and y_hat.requires_grad
+            and not y.requires_grad
+            and not any(p.requires_grad for p in self.parameters()))
+        both = None if real_is_target else torch.cat([y, y_hat])
         y_d_rs, y_d_gs, fmap_rs, fmap_gs = [], [], [], []
         for d in self.discriminators:
-            score, fmap = d(both)
-            y_d_rs.append(score[:b])
-            y_d_gs.append(score[b:])
-            fmap_rs.append([f[:b] for f in fmap])
-            fmap_gs.append([f[b:] for f in fmap])
+            if real_is_target:
+                with torch.no_grad():
+                    score_r, fmap_r = d(y)
+                score_g, fmap_g = d(y_hat)
+            else:
+                score, fmap = d(both)
+                score_r, score_g = score[:b], score[b:]
+                fmap_r, fmap_g = [f[:b] for f in fmap], [f[b:] for f in fmap]
+            y_d_rs.append(score_r)
+            y_d_gs.append(score_g)
+            fmap_rs.append(fmap_r)
+            fmap_gs.append(fmap_g)
         return y_d_rs, y_d_gs, fmap_rs, fmap_gs

@@ -500,7 +500,7 @@ def g_losses(state: TrainState, batch, out, y: torch.Tensor
                                 d.hop_length, d.win_length, d.mel_fmin,
                                 d.mel_fmax)
     # gradients reach the generator through D, whose own gradients are
-    # not needed
+    # not needed; frozen, D takes the real half alone without autograd
     state.net_d.requires_grad_(False)
     try:
         with _autocast(state):

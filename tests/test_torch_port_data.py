@@ -291,7 +291,7 @@ def test_cli_feeds(tmp_path, monkeypatch):
     import sys
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from torch_port_data import write_tiny_dataset
+    from torch_port_data import drop_checkpoints, write_tiny_dataset
 
     from mb_istft_vits_torch.train.__main__ import main
 
@@ -319,3 +319,4 @@ def test_cli_feeds(tmp_path, monkeypatch):
     assert "device-resident corpus" not in logs["both"]
     for log in logs.values():
         assert re.search(r"step 1: \{", log)
+    drop_checkpoints(tmp_path)

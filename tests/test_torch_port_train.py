@@ -1,7 +1,8 @@
 """Trainer parity of the PyTorch port with the JAX package on the CPU: the
 STFT / spectrogram / mel front ends, PQMF analysis, every loss, the
 weight-normed Conv2d, the multi-period discriminator and its weight
-bridge, `Synthesizer.fake_slice`, AdamW and the lr schedule, the
+bridge and its G step's pass (the real half outside autograd),
+`Synthesizer.fake_slice`, AdamW and the lr schedule, the
 dataset and bucketed batcher, and one whole D + G step against
 `make_train_step`'s `d_step` and `g_step`, on each feed: int16 PCM with
 the spectrogram computed in the step, and host spectrograms.
@@ -14,6 +15,7 @@ optimizer; exceptions are stated where they are made.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 
@@ -104,11 +106,15 @@ def _wave(rng, *shape, amp=0.3):
 
 
 def _d_from_port(net_d, tmp_path):
-    """port D -> reference D_*.pth -> the JAX package's importer."""
+    """port D -> reference D_*.pth -> the JAX package's importer (the
+    187 MB file goes once read)."""
     path = str(tmp_path / "D_0.pth")
     torch.save({"model": net_d.state_dict(), "iteration": 0,
                 "learning_rate": 2e-4, "optimizer": None}, path)
-    return import_torch_discriminator(path)
+    try:
+        return import_torch_discriminator(path)
+    finally:
+        os.remove(path)
 
 
 # -- dsp --------------------------------------------------------------------
@@ -263,6 +269,188 @@ def test_discriminator_matches_flax(disc):
             for o, r in zip(o_disc, r_disc):
                 # torch [B, C, T(, p)] against flax [B, T(, p), C]
                 assert_close(np.moveaxis(n(o), 1, -1), r, what="fmap")
+
+
+# -- the G step's discriminator pass ------------------------------------------
+
+
+def joint_d_pass(net_d, y, y_hat):
+    """Real and fake through each sub-discriminator as one batch of 2B,
+    whatever needs a gradient: the formulation that the G step's split
+    pass must reproduce."""
+    b = y.shape[0]
+    both = torch.cat([y, y_hat.to(y.dtype)])
+    res = [], [], [], []
+    for d in net_d.discriminators:
+        score, fmap = d(both)
+        for acc, v in zip(res, (score[:b], score[b:], [f[:b] for f in fmap],
+                                [f[b:] for f in fmap])):
+            acc.append(v)
+    return res
+
+
+@contextlib.contextmanager
+def d_call_rows(net_d):
+    """The rows of each sub-discriminator call inside the block, in order."""
+    rows = []
+    hooks = [d.register_forward_hook(
+        lambda mod, args, out: rows.append(args[0].shape[0]))
+        for d in net_d.discriminators]
+    try:
+        yield rows
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _rel_l2(ours, ref) -> float:
+    ours, ref = ours.detach().double(), ref.detach().double()
+    return float(torch.linalg.vector_norm(ours - ref)
+                 / max(float(torch.linalg.vector_norm(ref)), 1e-30))
+
+
+def _flat(outs):
+    """(scores, maps) of a D pass's result -> (real tensors, fake ones)."""
+    y_d_rs, y_d_gs, fmap_rs, fmap_gs = outs
+    return ([*y_d_rs, *(f for m in fmap_rs for f in m)],
+            [*y_d_gs, *(f for m in fmap_gs for f in m)])
+
+
+def check_g_step_d_pass(state, batch, draws, seed=14):
+    """The G step's D pass on `batch` (the collate's) and `draws`: with D
+    frozen and the real slice needing no gradient, each sub-discriminator
+    runs twice on B rows, the real half's scores and maps carry no
+    autograd graph and the fake half's do, and both match the one 2B pass
+    (D's parameters needing gradients) to 1e-6 relative L2; G's gradients
+    after `g_backward` match those of the 2B formulation to 1e-6 relative
+    L2, leaf by leaf, and so do its losses. `seed` fixes the duration
+    predictor's dropout in both forwards."""
+    net_d = state.net_d
+    prepped = tstep.prep_batch(batch, state.cfg)
+
+    def forward():
+        torch.manual_seed(seed)
+        out = tstep.g_forward(state, prepped, draws)
+        return out, tstep.real_slice(state, prepped, out[4])
+
+    out, y = forward()
+    y_hat = out[0].transpose(1, 2)
+    b = y.shape[0]
+    assert not y.requires_grad and y_hat.requires_grad
+    with d_call_rows(net_d) as rows:
+        joint = net_d(y, y_hat)
+    assert rows == [2 * b] * len(net_d.discriminators)
+    net_d.requires_grad_(False)
+    try:
+        with d_call_rows(net_d) as rows:
+            split = net_d(y, y_hat)
+    finally:
+        net_d.requires_grad_(True)
+    assert rows == [b, b] * len(net_d.discriminators)
+    (s_real, s_fake), (j_real, j_fake) = _flat(split), _flat(joint)
+    assert len(s_real) == len(j_real) == len(s_fake) == len(j_fake)
+    assert all(v.grad_fn is None for v in s_real)
+    assert all(v.grad_fn is not None for v in s_fake)
+    for ours, ref in zip(s_real + s_fake, j_real + j_fake):
+        assert ours.shape == ref.shape
+        assert _rel_l2(ours, ref) <= 1e-6
+
+    losses = tstep.g_backward(state, prepped, out, y)
+    grads = {k: p.grad.clone() for k, p in state.net_g.named_parameters()}
+    out, y = forward()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(net_d, "forward", functools.partial(joint_d_pass, net_d))
+        ref_losses = tstep.g_backward(state, prepped, out, y)
+    for k, v in ref_losses.items():
+        assert rel_err(losses[k], v) <= 1e-6, k
+    moved = 0
+    for k, p in state.net_g.named_parameters():
+        if float(torch.linalg.vector_norm(p.grad)) == 0.0:
+            assert not grads[k].any(), k
+            continue
+        assert _rel_l2(grads[k], p.grad) <= 1e-6, k
+        moved += 1
+    assert moved > 100
+
+
+def check_d_step_d_pass(state, batch, draws):
+    """The D step on `batch` (the collate's) and `draws` still runs each
+    sub-discriminator once on 2B rows, and D's gradients and loss equal
+    those of the 2B formulation bit for bit."""
+    net_d = state.net_d
+    prepped = tstep.prep_batch(batch, state.cfg)
+    with torch.no_grad():
+        out = tstep.g_forward(state, prepped, draws)
+    y, y_hat = tstep.real_slice(state, prepped, out[4]), out[0].transpose(1, 2)
+    with d_call_rows(net_d) as rows:
+        loss = tstep.d_backward(state, y, y_hat)
+    assert rows == [2 * y.shape[0]] * len(net_d.discriminators)
+    grads = {k: p.grad.clone() for k, p in net_d.named_parameters()}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(net_d, "forward", functools.partial(joint_d_pass, net_d))
+        ref_loss = tstep.d_backward(state, y, y_hat)
+    assert torch.equal(loss, ref_loss)
+    for k, p in net_d.named_parameters():
+        assert p.grad.any(), k
+        assert torch.equal(grads[k], p.grad), k
+
+
+@pytest.fixture(scope="module")
+def d_pass_state(disc, tmp_path_factory):
+    """A port train state of step_run's configs at SEG samples, its D the
+    seeded `disc`, its G every leaf non-zero; a collate-shaped batch and
+    the step's draws for it."""
+    cfg_t, cfg_j = configs(p_dropout=0.0)
+    _, model = make_weights(tmp_path_factory.mktemp("d_pass"), cfg_t, cfg_j)
+    train = dict(segment_size=SEG, batch_size=2, steps_per_epoch=1)
+    cfg = Config(model=cfg_t, data=DataConfig(), train=TrainConfig(**train))
+    state = tstep.create_train_state(cfg, torch.device("cpu"), seed=0)
+    state.net_g.load_state_dict(model.state_dict())
+    state.net_d.load_state_dict(disc[0].state_dict())
+    batch = {k: t(v) for k, v in _step_batch().items()}
+    return state, batch, tstep.draw_step(state, batch)
+
+
+def test_g_step_d_pass_leaves_the_real_half_out_of_autograd(d_pass_state):
+    check_g_step_d_pass(*d_pass_state)
+
+
+def test_d_step_d_pass_is_one_joint_batch(d_pass_state):
+    check_d_step_d_pass(*d_pass_state)
+
+
+def test_g_loss_backward_counts_one_real_d_forward_less(disc):
+    """Under FlopCounterMode, the backward of a generator-style loss
+    (`generator_loss` + `feature_loss`) through the frozen D counts
+    exactly one D forward on the real rows less than the same loss through
+    the 2B formulation: the real half's input gradients are not run."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    net_d = disc[0]
+    rng = np.random.RandomState(9)
+    y = t(_wave(rng, 2, 1, 1024))
+    y_hat = t(_wave(rng, 2, 1, 1024, amp=0.1)).requires_grad_(True)
+
+    def backward_flops(d_pass):
+        _, y_d_g, fmap_r, fmap_g = d_pass(y, y_hat)
+        loss = losses.generator_loss(y_d_g)[0] + losses.feature_loss(
+            fmap_r, fmap_g)
+        with FlopCounterMode(display=False) as counter:
+            loss.backward()
+        return counter.get_total_flops()
+
+    net_d.requires_grad_(False)
+    try:
+        split = backward_flops(net_d)
+        joint = backward_flops(functools.partial(joint_d_pass, net_d))
+    finally:
+        net_d.requires_grad_(True)
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        for d in net_d.discriminators:
+            d(y)
+    real_forward = counter.get_total_flops()
+    assert real_forward > 0 and split > 0
+    assert joint - split == real_forward
 
 
 # -- optimizer ----------------------------------------------------------------

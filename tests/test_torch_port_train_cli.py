@@ -24,7 +24,7 @@ import sys
 import pytest
 import torch
 
-from torch_port_data import write_tiny_dataset
+from torch_port_data import drop_checkpoints, write_tiny_dataset
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEP_LINE = re.compile(r"\bstep (\d+): (\{.*\})$")
@@ -184,6 +184,7 @@ def test_cli_trains_a_japanese_multispeaker_config(tmp_path):
     os.remove(model_dir / "G_3.pth")  # resume from step 2
     assert checkpoint.resume(str(model_dir), state) == 2
     assert torch.equal(state.net_g.emb_g.weight.detach(), g2["emb_g.weight"])
+    drop_checkpoints(model_dir)
 
 
 EVAL_LINE = re.compile(r"\beval: (\w+=.*)$")

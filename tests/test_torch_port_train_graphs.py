@@ -48,7 +48,8 @@ from mb_istft_vits_torch.weights import (
 
 from tests.test_torch_port_train import _d_from_port, _posterior, _step_batch
 from tests.torch_port_common import configs, japply, make_weights, n, t
-from tests.torch_port_data import MS_CONFIG, write_tiny_config
+from tests.torch_port_data import (MS_CONFIG, drop_checkpoints,
+                                   write_tiny_config)
 
 LOSS_REL, D_ATOL, G_REL = 1e-4, 1e-4, 2e-4
 
@@ -340,6 +341,7 @@ def test_resume_drops_the_graphs_and_a_reset_or_snap_writes_in_place(
     assert state.graphs.keys() == [] and len(state.graphs) == 0
     tstep.train_step(state, batch)
     assert state.graphs.keys() == key
+    drop_checkpoints(model_dir)
 
 
 def test_a_capturable_pair_loads_into_an_eager_cpu_state_and_back(
@@ -368,6 +370,7 @@ def test_a_capturable_pair_loads_into_an_eager_cpu_state_and_back(
     cpu = tstep.create_train_state(cfg, torch.device("cpu"), seed=6)
     assert checkpoint.resume(model_dir, cpu) == 1
     assert checkpoint._adam_steps(cpu.optim_g) == 1
+    drop_checkpoints(model_dir)
     metrics = tstep.train_step(cpu, batch)
     assert all(np.isfinite(float(v)) for v in metrics.values())
 
@@ -382,6 +385,7 @@ def test_a_capturable_pair_loads_into_an_eager_cpu_state_and_back(
         assert float(lr) == np.float32(tstep.make_lr_schedule(cfg)(1))
     assert all(st["step"].dtype == torch.float32 and float(st["step"]) == 2
                for st in back.optim_g.state.values())
+    drop_checkpoints(cpu_dir)
 
 
 def test_the_lr_follows_the_schedule_across_an_epoch(tmp_path):

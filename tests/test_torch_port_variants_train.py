@@ -38,6 +38,8 @@ from tests.test_torch_port_train import (
     ZERO_GRAD_G,
     _d_from_port,
     _step_batch,
+    check_d_step_d_pass,
+    check_g_step_d_pass,
     rel_err,
 )
 from tests.test_torch_port_variants import (
@@ -109,12 +111,14 @@ def ms_step(tmp_path_factory):
     state.net_d.load_state_dict(discriminator_state_dict_from_jax(params_d))
     state.net_g.dp.drop.p = 0.0
     init_g = {k: v.clone() for k, v in state.net_g.state_dict().items()}
-    metrics = tstep.train_step(state, {k: t(v) for k, v in batch.items()},
-                               tstep.StepDraws(t(_eps(*post[:4])),
-                                               t(post[4])))
+    init_d = {k: v.clone() for k, v in state.net_d.state_dict().items()}
+    tbatch = {k: t(v) for k, v in batch.items()}
+    draws = tstep.StepDraws(t(_eps(*post[:4])), t(post[4]))
+    metrics = tstep.train_step(state, tbatch, draws)
     grads_seen = state.net_g.emb_g.weight.grad.clone()
     return dict(ref=ref, metrics=metrics, state=state, cfg=cfg_t,
-                init_g=init_g, emb_grad=grads_seen)
+                init_g=init_g, init_d=init_d, emb_grad=grads_seen,
+                batch=tbatch, draws=draws)
 
 
 def test_ms_speaker_train_step_matches_make_train_step(ms_step):
@@ -160,3 +164,27 @@ def test_ms_step_emb_g_gradient_is_the_batch_speakers(ms_step):
     grad = ms_step["emb_grad"]
     moved = sorted(i for i in range(grad.shape[0]) if grad[i].abs().sum() > 0)
     assert moved == sorted(set(SID.tolist()))
+
+
+@pytest.fixture(scope="module")
+def ms_d_pass_state(ms_step):
+    """A fresh state of `ms_step`'s config holding its weights from before
+    its step (lr 10 leaves weights that no longer make finite scores),
+    every dropout off; its batch and draws."""
+    state = tstep.create_train_state(ms_step["state"].cfg,
+                                     torch.device("cpu"), seed=0)
+    state.net_g.load_state_dict(ms_step["init_g"])
+    state.net_d.load_state_dict(ms_step["init_d"])
+    state.net_g.dp.drop.p = 0.0
+    return state, ms_step["batch"], ms_step["draws"]
+
+
+def test_ms_step_g_step_d_pass_leaves_the_real_half_out_of_autograd(
+        ms_d_pass_state):
+    """The multi-stream head's G step: D's pass as
+    tests/test_torch_port_train.py checks the multi-band head's."""
+    check_g_step_d_pass(*ms_d_pass_state)
+
+
+def test_ms_step_d_step_d_pass_is_one_joint_batch(ms_d_pass_state):
+    check_d_step_d_pass(*ms_d_pass_state)

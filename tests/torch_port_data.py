@@ -8,6 +8,7 @@ so the CLI and card tests and chip_smoke.py's `train_cli` phase use it.
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 
@@ -25,6 +26,16 @@ TINY_MODEL = dict(inter_channels=16, hidden_channels=16, filter_channels=32,
                   n_layers=1, upsample_initial_channel=32,
                   resblock_kernel_sizes=[3],
                   resblock_dilation_sizes=[[1, 3, 5]])
+
+
+def drop_checkpoints(root) -> None:
+    """Delete every `G_*.pth` / `D_*.pth` under `root`, once a test has
+    read what it needs of them: the tiny configs keep the full-size
+    discriminator, whose checkpoint with its AdamW moments is 561 MB, and
+    pytest keeps the tmp dirs of its last three runs."""
+    for path in glob.glob(os.path.join(str(root), "**", "[GD]_*.pth"),
+                          recursive=True):
+        os.remove(path)
 
 
 def _tiny(config: str) -> dict:
